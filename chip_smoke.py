@@ -9,16 +9,21 @@ one PINHOLE camera, exhaustive pairing (190 pairs in one block). Phases:
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the matcher kernel (csrc/matcher_top2.cu) with nvcc;
 3. kernel against its plain twin on the card at (B=8, N=M=8192) and
-   (B=190, N=M=1024) with padding rows: indices exactly equal, forward
-   best/second bit-equal; prints both times;
+   (B=190, N=M=1024) with padding rows: indices exactly equal, best /
+   second / reverse best bit-equal; prints both times, the least time the
+   card could take (bound_ms, from B, N and M) and the kernel's share of
+   it, and at 8 x 8192^2 torch._int_mm over the same products (one call per
+   pair: a yardstick of an unfused route, which the port never calls);
 4. main path: run_automatic_reconstruction(sparse=False) on cuda, with the
    kernel launch counter zeroed just before it and read just after;
 5. outcome: every verified pair's relative rotation, recovered from its
    stored E and inlier matches, within 1 deg of ground truth, and every
    image in a verified pair with >= 100 inliers.
 
-The second-to-last line is the kernel report, one JSON object; the last
-line is {"ok": true, "device": {...}}. Any failed check exits nonzero.
+The second-to-last line is the kernel report, one JSON object: its ms,
+plain_ms and bound_ms are those of the main path's shape (B=190,
+N=M=1024), `shapes` holds both shapes. The last line is {"ok": true,
+"device": {...}}. Any failed check exits nonzero.
 """
 
 import json
@@ -35,9 +40,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from colmap_tpu_torch import cuda_build  # noqa: E402
+from colmap_tpu_torch.bench_matcher import (  # noqa: E402
+    bound_ms, cuda_ms, int_mm_ms, random_blocks)
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar  # noqa: E402
 from colmap_tpu_torch.features import hopper_matcher as hm  # noqa: E402
-from colmap_tpu_torch.features import matching as mm  # noqa: E402
 from colmap_tpu_torch.features import pairing  # noqa: E402
 from colmap_tpu_torch.geometry import rotation as rot  # noqa: E402
 from colmap_tpu_torch.geometry.essential import (  # noqa: E402
@@ -53,37 +59,6 @@ def fail(msg):
 
 def phase(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
-def random_blocks(B, n, seed):
-    """A batch of matchable pairs: b2 is a permuted, noised b1, with
-    padding rows on both sides."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    d1 = torch.randint(0, 200, (B, n, 128), generator=g, device="cuda",
-                       dtype=torch.int32)
-    perm = torch.randperm(n, generator=g, device="cuda")
-    noise = torch.randint(-3, 4, (B, n, 128), generator=g, device="cuda",
-                          dtype=torch.int32)
-    d2 = torch.clamp(d1[:, perm] + noise, 0, 255)
-    v1 = torch.ones(B, n, dtype=torch.bool, device="cuda")
-    v2 = v1.clone()
-    v1[:, n - n // 8:] = False
-    v2[0, : n // 4] = False
-    return (mm.prepare_descriptors(d1.to(torch.uint8), v1, device="cuda"),
-            mm.prepare_descriptors(d2.to(torch.uint8), v2, device="cuda"))
 
 
 def main():
@@ -111,7 +86,8 @@ def main():
     # ---- 3. kernel against its plain twin on the card
     report = {"name": "matcher_top2", "route": "cuda",
               "source": "colmap_tpu_torch/csrc/matcher_top2.cu",
-              "replaces": "colmap_tpu/features/pallas_matcher.py:57"}
+              "replaces": "colmap_tpu/features/pallas_matcher.py:57",
+              "library_ms": None, "shapes": []}
     max_err = 0.0
     for B, n in ((8, 8192), (190, 1024)):
         b1, b2 = random_blocks(B, n, seed=B)
@@ -126,14 +102,23 @@ def main():
         err = max(float((k[i] - r[i]).abs().max()) for i in (0, 1, 3))
         max_err = max(max_err, err)
         m_k = hm.match_pairs_batch_fused(b1, b2)
-        ms = cuda_ms(lambda: hm.top2_fwd_rev(b1, b2), 5)
+        ms = cuda_ms(lambda: hm.top2_fwd_rev(b1, b2), 20)
         plain_ms = cuda_ms(lambda: hm._top2_fwd_rev_reference(b1, b2), 3)
-        ms2 = cuda_ms(lambda: hm.top2_fwd_rev(b1, b2), 5)
-        phase(f"[kernel] B={B} N=M={n}: indices equal, best/second "
-              f"bit-equal; kernel {ms:.4f} / {ms2:.4f} ms, twin "
-              f"{plain_ms:.4f} ms; matched {float((m_k >= 0).float().mean())}")
-        if (B, n) == (8, 8192):
-            report.update(ms=min(ms, ms2), plain_ms=plain_ms)
+        ms = min(ms, cuda_ms(lambda: hm.top2_fwd_rev(b1, b2), 20))
+        bound, bound_by = bound_ms(B, n, n)
+        shape = {"B": B, "N": n, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "share": bound / ms}
+        if B == 8:
+            shape["int_mm_ms"] = int_mm_ms(b1, b2, 5)
+        report["shapes"].append(shape)
+        phase(f"[kernel] B={B} N=M={n}: indices equal, best/second/rev "
+              f"bit-equal; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({bound_by}), share of bound "
+              f"{bound / ms:.4f}; int_mm {shape.get('int_mm_ms')} ms; "
+              f"matched {float((m_k >= 0).float().mean())}")
+        if (B, n) == (190, 1024):  # the main path's shape
+            report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=bound_by)
         del b1, b2, k, r, m_k
     report["max_abs_err"] = max_err
 

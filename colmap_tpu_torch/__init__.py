@@ -5,9 +5,10 @@ so each function here is found under the same path as its JAX counterpart.
 It imports torch and never jax or colmap_tpu; the host-only modules it needs
 (database, bitmap, camera database, synthetic renderer) are copies.
 
-Every entry point takes an explicit `device`; there is no device fallback.
-The one TPU kernel on the correspondence front end (the fused descriptor
-matcher) is a hand-written CUDA kernel, `csrc/matcher_top2.cu`, bound in
+Entry points run on the card unless the caller asks for another device;
+there is no device fallback. The one TPU kernel on the correspondence front
+end (the fused descriptor matcher) is a hand-written CUDA kernel on the
+int8 tensor cores, `csrc/matcher_top2.cu`, bound in
 `features/hopper_matcher.py`.
 """
 

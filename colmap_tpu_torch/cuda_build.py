@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
+build_logs: Dict[str, str] = {}  # nvcc's messages (e.g. from -Xptxas -v)
 
 
 def find_nvcc() -> str:
@@ -39,13 +40,15 @@ def find_nvcc() -> str:
     return found
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile `sources` (file names under csrc/) into lib<name>, once per
-    content hash, and return the loaded library."""
+def load_library(name: str, sources: Sequence[str],
+                 flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Compile `sources` (file names under csrc/, or absolute paths) with
+    NVCC_FLAGS plus `flags` into lib<name>, once per content hash, and
+    return the loaded library."""
     if name in _LIBS:
         return _LIBS[name]
     paths = [os.path.join(CSRC, s) for s in sources]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
     for p in paths:
         with open(p, "rb") as f:
             h.update(f.read())
@@ -54,12 +57,30 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, *paths]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+        build_logs[name] = res.stderr
         os.replace(tmp, out)
     lib = ctypes.CDLL(out)
     build_seconds[name] = time.perf_counter() - t0
     _LIBS[name] = lib
     return lib
+
+
+def ptx(source: str) -> str:
+    """The PTX nvcc emits for `source` (a file name under csrc/), to check
+    which instructions a kernel issues."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"{source}.{os.getpid()}.ptx")
+    res = subprocess.run([find_nvcc(), "-arch=compute_90a", "-std=c++17",
+                          "-O3", "-ptx", "-o", out,
+                          os.path.join(CSRC, source)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc -ptx failed for {source}:\n{res.stderr}")
+    with open(out) as f:
+        text = f.read()
+    os.remove(out)
+    return text

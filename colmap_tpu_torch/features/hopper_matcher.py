@@ -3,9 +3,10 @@ top-2 (forward) + argmax (reverse, for the cross check) in one sweep.
 
 Port of colmap_tpu/features/pallas_matcher.py. The TPU kernel
 (`_matcher_kernel`, and its bf16 twin `_matcher_kernel_bf16`) becomes the
-CUDA kernel `csrc/matcher_top2.cu`, built with nvcc at first use and called
-through ctypes. `top2_fwd_rev` is its wrapper: on a CUDA tensor it launches
-the kernel (or raises), on a CPU tensor it runs the plain PyTorch twin
+CUDA kernel `csrc/matcher_top2.cu` (int8 products on the tensor cores with
+`mma.sync`), built with nvcc at first use and called through ctypes.
+`top2_fwd_rev` is its wrapper: on a CUDA tensor it launches the kernel (or
+raises), on a CPU tensor it runs the plain PyTorch twin
 `_top2_fwd_rev_reference`. `match_pairs_batch_fused` is the counterpart of
 `match_pairs_batch_pallas`, with the same epilogue.
 
@@ -37,17 +38,22 @@ launches = 0  # kernel launches (one per pair chunk), read by chip_smoke.py
 _lib = None
 
 
+def bind(lib):
+    """Declare the C entry point of a built matcher library (this kernel,
+    or another build of the same interface) for ctypes."""
+    fn = lib.matcher_top2_fwd_rev
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 8)
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from colmap_tpu_torch.cuda_build import load_library
 
-        lib = load_library("matcher_top2", ["matcher_top2.cu"])
-        fn = lib.matcher_top2_fwd_rev
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 8)
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(load_library("matcher_top2", ["matcher_top2.cu"]))
     return _lib
 
 
@@ -78,9 +84,11 @@ def _check_block(b: DescriptorBlock, name: str):
             raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def _top2_fwd_rev_kernel(b1: DescriptorBlock, b2: DescriptorBlock):
+def _top2_fwd_rev_kernel(b1: DescriptorBlock, b2: DescriptorBlock,
+                         lib=None):
+    """Launch the kernel (or `lib`, another build bound with `bind`)."""
     global launches
-    lib = _library()
+    lib = lib or _library()
     B, n = b1.centered.shape[:2]
     m = b2.centered.shape[1]
     dev = b1.centered.device

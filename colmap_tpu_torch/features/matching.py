@@ -40,8 +40,18 @@ class DescriptorBlock(NamedTuple):
     valid: torch.Tensor  # (..., N) bool
 
 
-def prepare_descriptors(desc_u8, valid=None, device="cpu") -> DescriptorBlock:
-    """Pack uint8 descriptors (..., N, 128) for int8 matching."""
+def _target_device(x, device):
+    """Where a function's result goes: an explicit `device` wins, a torch
+    tensor stays on its own device, anything else goes to the card."""
+    if device is not None:
+        return device
+    return x.device if torch.is_tensor(x) else "cuda"
+
+
+def prepare_descriptors(desc_u8, valid=None, device=None) -> DescriptorBlock:
+    """Pack uint8 descriptors (..., N, 128) for int8 matching, on `device`
+    (default: a tensor's own device, the card for numpy input)."""
+    device = _target_device(desc_u8, device)
     d = torch.as_tensor(np.asarray(desc_u8) if not torch.is_tensor(desc_u8)
                         else desc_u8, device=device)
     di = d.to(torch.int32)
@@ -59,10 +69,15 @@ def prepare_descriptors(desc_u8, valid=None, device="cpu") -> DescriptorBlock:
 
 
 def block_from_numpy(centered, row_sum, inv_norm, valid,
-                     device="cpu") -> DescriptorBlock:
+                     device=None) -> DescriptorBlock:
     """A DescriptorBlock from numpy arrays (e.g. a JAX DescriptorBlock
-    fetched to the host): the same layout, moved onto `device`."""
+    fetched to the host): the same layout, moved onto `device` (default:
+    the card; torch tensors stay on their own device)."""
+    device = _target_device(centered, device)
+
     def t(x, dtype):  # a copy: arrays fetched from JAX are read-only
+        if torch.is_tensor(x):
+            return x.to(device=device, dtype=dtype, copy=True)
         return torch.as_tensor(np.array(x), device=device).to(dtype)
 
     return DescriptorBlock(centered=t(centered, torch.int8),

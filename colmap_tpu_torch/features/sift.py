@@ -712,10 +712,11 @@ def extract_batch(images_u8: torch.Tensor,
 
 def extract(image: np.ndarray,
             options: SiftExtractionOptions = SiftExtractionOptions(),
-            device="cpu") -> Dict[str, np.ndarray]:
+            device="cuda") -> Dict[str, np.ndarray]:
     """Extract SIFT features from one image (uint8/f32, gray or RGB) on
-    `device`. Returns numpy arrays of the valid keypoints: xy [N,2],
-    scale [N], orientation [N], response [N], descriptors uint8 [N,128]."""
+    `device` (the card unless asked for another). Returns numpy arrays of
+    the valid keypoints: xy [N,2], scale [N], orientation [N], response
+    [N], descriptors uint8 [N,128]."""
     padded, scale, h, w = _prepare_u8(image, options)
     out = extract_batch(torch.as_tensor(padded, device=device)[None], options)
     feats = {k: v[0].cpu().numpy() for k, v in out.items()}

@@ -27,17 +27,39 @@ def cuda():
     return "cuda"
 
 
+# (kept, copy) pairs of target columns that tie for query row `kept`'s best:
+# in other lanes, other 8-column mma tiles, other column warps and other
+# 64-column tiles
+_COLUMN_TIES = ((3, 5), (10, 19), (20, 52), (40, 104), (70, 250), (100, 164))
+# (kept, copy) pairs of query rows that tie for column `kept`'s reverse best:
+# in the other half of an mma tile, other mma tiles, other row warps and
+# other 64-row query tiles (no index here is in a pair above)
+_ROW_TIES = ((6, 14), (33, 49), (9, 41), (12, 76), (30, 230))
+
+
 def _blocks(rng, B, n, m, device, dup=False):
     d1 = rng.integers(0, 200, (B, n, 128)).astype(np.uint8)
     d2 = rng.integers(0, 200, (B, m, 128)).astype(np.uint8)
     k = min(n, m)
     d2[:, :k] = np.clip(d1[:, :k].astype(int)
                         + rng.integers(-3, 4, (B, k, 128)), 0, 255)
-    if dup:  # exact ties: repeated target rows and repeated query rows
-        d2[:, 1::2] = d2[:, 0::2][:, : d2[:, 1::2].shape[1]]
-        d1[:, 1::2] = d1[:, 0::2][:, : d1[:, 1::2].shape[1]]
     v1 = rng.random((B, n)) > 0.1
     v2 = rng.random((B, m)) > 0.1
+    if dup is True:  # exact ties: repeated target rows and repeated query rows
+        d2[:, 1::2] = d2[:, 0::2][:, : d2[:, 1::2].shape[1]]
+        d1[:, 1::2] = d1[:, 0::2][:, : d1[:, 1::2].shape[1]]
+    elif dup == "extremes":  # all-255 / all-0 rows: the largest and smallest
+        for d in (d1, d2):  # exact dot products and row sums
+            d[:, 0::7] = 255
+            d[:, 3::7] = 0
+        v2[:, 0] = True
+    elif dup == "ties":
+        for keep, copy in _COLUMN_TIES:
+            d2[:, copy] = d2[:, keep]
+            v2[:, [keep, copy]] = True
+        for keep, copy in _ROW_TIES:
+            d1[:, copy] = d1[:, keep]
+            v1[:, [keep, copy]] = True
     v2[0] = False  # a pair whose targets are all padding
     return (tm.prepare_descriptors(d1, v1, device=device),
             tm.prepare_descriptors(d2, v2, device=device))
@@ -54,7 +76,9 @@ def _assert_kernel_equals_twin(b1, b2):
 
 
 @pytest.mark.parametrize("n,m,dup", [(64, 64, False), (256, 512, False),
-                                     (512, 192, True), (1024, 1024, True)])
+                                     (512, 192, True), (1024, 1024, True),
+                                     (256, 320, "extremes"),
+                                     (256, 256, "ties")])
 def test_kernel_equals_twin(cuda, n, m, dup):
     rng = np.random.default_rng(n + m)
     b1, b2 = _blocks(rng, 3, n, m, cuda, dup)
@@ -63,6 +87,23 @@ def test_kernel_equals_twin(cuda, n, m, dup):
     assert (best[0] == -3e38).all() and (idx[0] == 0).all()
     out = hm.match_pairs_batch_fused(b1, b2)
     assert (out[0] == -1).all()
+    if dup == "ties":  # the cases tie, and the lowest index wins
+        for keep, copy in _COLUMN_TIES:
+            assert (idx[1:, keep] == keep).all()
+            assert (best[1:, keep] == second[1:, keep]).all()
+        for keep, copy in _ROW_TIES:
+            assert (ridx[:, keep] == keep).all()
+    if dup == "extremes":  # all-255 rows tie: the first one wins
+        assert (idx[1:, 0] == 0).all()
+        assert (best[1:, 0] == second[1:, 0]).all()
+
+
+def test_kernel_products_on_tensor_cores(cuda):
+    from colmap_tpu_torch import cuda_build
+
+    text = cuda_build.ptx("matcher_top2.cu")
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
+    assert "dp4a" not in text
 
 
 def test_kernel_splits_pairs_by_scratch(cuda, monkeypatch):

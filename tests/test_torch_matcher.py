@@ -61,8 +61,8 @@ def _pair_batch(rng, B=3, n=256, invalid_rows=True):
 def _both(d1, d2, v1, v2):
     jb1 = jax.vmap(jm.prepare_descriptors)(d1, jnp.asarray(v1))
     jb2 = jax.vmap(jm.prepare_descriptors)(d2, jnp.asarray(v2))
-    tb1 = tm.prepare_descriptors(d1, v1)
-    tb2 = tm.prepare_descriptors(d2, v2)
+    tb1 = tm.prepare_descriptors(d1, v1, device="cpu")
+    tb2 = tm.prepare_descriptors(d2, v2, device="cpu")
     return jb1, jb2, tb1, tb2
 
 
@@ -70,7 +70,7 @@ def test_prepare_descriptors_bit_equal(rng):
     d = rng.integers(0, 256, (300, 128)).astype(np.uint8)
     v = rng.random(300) > 0.2
     jb = jm.prepare_descriptors(d, jnp.asarray(v))
-    tb = tm.prepare_descriptors(d, v)
+    tb = tm.prepare_descriptors(d, v, device="cpu")
     for name in ("centered", "row_sum", "valid"):
         np.testing.assert_array_equal(np.asarray(getattr(jb, name)),
                                       getattr(tb, name).numpy())
@@ -79,10 +79,37 @@ def test_prepare_descriptors_bit_equal(rng):
     np.testing.assert_array_max_ulp(np.asarray(jb.inv_norm),
                                     tb.inv_norm.numpy(), maxulp=2)
     # the carried state: a JAX block fetched to the host becomes the port's
-    cb = tm.block_from_numpy(*(np.asarray(x) for x in jb))
+    cb = tm.block_from_numpy(*(np.asarray(x) for x in jb), device="cpu")
     for a, b, j in zip(tb, cb, jb):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(b.numpy(), np.asarray(j))
+
+
+def test_default_device_is_the_card(rng):
+    """Without `device`, numpy input goes to the card (and raises where
+    there is none); a tensor stays where it is; nothing falls back to the
+    CPU unasked."""
+    from colmap_tpu_torch.features import sift as tsift
+
+    d = rng.integers(0, 256, (2, 64, 128)).astype(np.uint8)
+    image = rng.integers(0, 256, (48, 64)).astype(np.uint8)
+    calls = (lambda: tm.prepare_descriptors(d),
+             lambda: tm.block_from_numpy(d.astype(np.int8), d[..., 0],
+                                         d[..., 1], d[..., 2] > 9),
+             lambda: tsift.extract(image))
+    if torch.cuda.is_available():
+        for b in calls[:2]:
+            assert all(x.is_cuda for x in b())
+    else:
+        for call in calls:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
+    cpu = tm.prepare_descriptors(torch.as_tensor(d))
+    assert all(x.device.type == "cpu" for x in cpu)
+    again = tm.block_from_numpy(*cpu)
+    assert all(x.device.type == "cpu" for x in again)
+    for a, b in zip(cpu, again):
+        assert torch.equal(a, b)
 
 
 def test_twin_matches_pallas_interpret(rng, interpret):
