@@ -1,10 +1,10 @@
-"""One-click reconstruction, front end: images dir -> database.
+"""One-click reconstruction: images dir -> database -> sparse model.
 
-Port of colmap_tpu/controllers/automatic_reconstruction.py through feature
-extraction and exhaustive matching (the correspondence front end). The
-quality presets are the JAX package's. The mapper (`sparse=True`), dense
-reconstruction and the VIDEO data type are not ported yet and raise
-NotImplementedError.
+Port of colmap_tpu/controllers/automatic_reconstruction.py: feature
+extraction, exhaustive matching and, with `sparse=True`, the incremental
+mapper, whose model is written to workspace/sparse/0 in the binary format.
+The quality presets are the JAX package's. Dense reconstruction and the
+VIDEO data type are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,7 +18,12 @@ from typing import Optional
 
 from colmap_tpu_torch.controllers import feature_extraction as fe
 from colmap_tpu_torch.controllers import feature_matching as fm
+from colmap_tpu_torch.controllers.incremental_pipeline import (
+    IncrementalPipeline,
+    IncrementalPipelineOptions,
+)
 from colmap_tpu_torch.features import sift as sift_mod
+from colmap_tpu_torch.scene import reconstruction_io
 from colmap_tpu_torch.scene.database import Database
 
 logger = logging.getLogger("colmap_tpu_torch")
@@ -64,16 +69,20 @@ class AutomaticReconstructionOptions:
 
 def run_automatic_reconstruction(
     options: AutomaticReconstructionOptions,
+    mapper_options: Optional[IncrementalPipelineOptions] = None,
     seed: int = 0,
     stage_timings: Optional[dict] = None,
     device="cuda",
 ):
     """Extraction + exhaustive matching on `device` into
-    workspace/database.db. Returns (None, database): the reconstruction
-    slot stays None until the mapper is ported. `stage_timings`, when a
-    dict, gets the wall seconds of "extraction" and "matching"."""
-    if options.sparse:
-        raise NotImplementedError("mapper: ROADMAP queue 1 item 5")
+    workspace/database.db, then, with `options.sparse`, incremental mapping
+    into workspace/sparse/0. Returns (reconstruction | None, database).
+
+    `stage_timings`, when a dict, gets the wall seconds of "extraction",
+    "matching" and, when mapping ran, "mapping", the pipeline's per-stage
+    seconds under "mapping_stages" and its BA sub-timers and counters
+    (calls, LM iterations, CG steps, host synchronizations) under
+    "mapping_ba"."""
     if options.dense:
         raise NotImplementedError("dense reconstruction: ROADMAP queue 1 "
                                   "item 9")
@@ -99,4 +108,21 @@ def run_automatic_reconstruction(
     if stage_timings is not None:
         stage_timings["extraction"] = t1 - t0
         stage_timings["matching"] = t2 - t1
-    return None, database
+
+    rec = None
+    if options.sparse:
+        logger.info("=== incremental mapping ===")
+        pipeline = IncrementalPipeline(
+            database, mapper_options or IncrementalPipelineOptions(),
+            device=device)
+        rec = pipeline.run(seed=seed)
+        if rec is not None:
+            reconstruction_io.write_model(
+                rec, os.path.join(options.workspace_path, "sparse", "0"),
+                ext=".bin")
+        if stage_timings is not None:
+            stage_timings["mapping"] = time.perf_counter() - t2
+            stage_timings["mapping_stages"] = dict(sorted(
+                pipeline.stage_s.items(), key=lambda kv: -kv[1]))
+            stage_timings["mapping_ba"] = dict(pipeline.ba_stats)
+    return rec, database

@@ -1,7 +1,10 @@
 """Quaternion rotation math, batched over leading axes.
 
-Port of the parts of colmap_tpu/geometry/rotation.py that two-view geometry
-uses. Quaternions are (w, x, y, z); R(q) @ v rotates world->frame vectors.
+Port of the parts of colmap_tpu/geometry/rotation.py that two-view
+geometry, absolute pose and bundle adjustment use. Quaternions are
+(w, x, y, z); R(q) @ v rotates world->frame vectors. Every function is
+functional (no in-place writes), so torch.func transforms (vmap, jvp,
+jacfwd) run through it.
 """
 
 from __future__ import annotations
@@ -15,14 +18,26 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     """Return the unit quaternion, guarding the zero quaternion to identity."""
     n = torch.linalg.norm(q, dim=-1, keepdim=True)
     safe = q / torch.clamp(n, min=_EPS)
-    identity = torch.zeros_like(q)
-    identity[..., 0] = 1.0
+    identity = torch.cat([torch.ones_like(q[..., :1]),
+                          torch.zeros_like(q[..., 1:])], dim=-1)
     return torch.where(n > _EPS, safe, identity)
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
     return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
                             device=q.device)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b (apply b first, then a, under quat_rotate)."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -92,3 +107,58 @@ def quat_angle_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Relative rotation angle between two quaternions, in degrees."""
     d = torch.abs(torch.sum(quat_normalize(a) * quat_normalize(b), dim=-1))
     return torch.rad2deg(2.0 * torch.arccos(torch.clamp(d, -1.0, 1.0)))
+
+
+def quat_from_axis_angle(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Rotation vector (..., 3) -> quaternion (..., 4).
+
+    Differentiable at zero rotation (the BA / pose-refinement linearization
+    point): the sqrt never sees 0, and small angles take a Taylor branch.
+    """
+    n2 = torch.sum(axis_angle * axis_angle, dim=-1, keepdim=True)
+    small = n2 < 1e-12
+    angle = torch.sqrt(torch.where(small, torch.ones_like(n2), n2))
+    half = 0.5 * angle
+    k = torch.where(small, 0.5 - n2 / 48.0, torch.sin(half) / angle)
+    w = torch.where(small, 1.0 - n2 / 8.0, torch.cos(half))
+    return torch.cat([w, k * axis_angle], dim=-1)
+
+
+def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) -> rotation vector (..., 3)."""
+    q = quat_normalize(q)
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    w = torch.clamp(q[..., :1], -1.0, 1.0)
+    v = q[..., 1:]
+    vn = torch.linalg.norm(v, dim=-1, keepdim=True)
+    angle = 2.0 * torch.arctan2(vn, w)
+    scale = torch.where(vn < 1e-9, 2.0 / torch.clamp(w, min=_EPS),
+                        angle / torch.clamp(vn, min=_EPS))
+    return scale * v
+
+
+def quat_slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation between unit quaternions; t broadcasts
+    against the leading axes."""
+    a = quat_normalize(a)
+    b = quat_normalize(b)
+    d = torch.sum(a * b, dim=-1, keepdim=True)
+    b = torch.where(d < 0, -b, b)
+    theta = torch.arccos(torch.clamp(torch.abs(d), -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    lerp = sin_theta < 1e-6
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+    if t.dim() == a.dim() - 1:
+        t = t[..., None]
+    safe = torch.clamp(sin_theta, min=_EPS)
+    wa = torch.where(lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    wb = torch.where(lerp, t, torch.sin(t * theta) / safe)
+    return quat_normalize(wa * a + wb * b)
+
+
+def cross_matrix(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric cross-product matrix [v]_x, (..., 3) -> (..., 3, 3)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(v.shape[:-1] + (3, 3))

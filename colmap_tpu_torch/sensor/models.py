@@ -34,6 +34,7 @@ class CameraModelId(enum.IntEnum):
     RAD_TAN_THIN_PRISM_FISHEYE = 11
 
 
+MODEL_NAMES = {m: m.name for m in CameraModelId}
 MODEL_IDS_BY_NAME = {m.name: m for m in CameraModelId}
 
 NUM_PARAMS = {
@@ -66,6 +67,25 @@ _FXFY_CXCY = {
     CameraModelId.THIN_PRISM_FISHEYE: (0, 1, 2, 3),
     CameraModelId.RAD_TAN_THIN_PRISM_FISHEYE: (0, 1, 2, 3),
 }
+
+
+def refine_mask(model_id: int, focal: bool = True,
+                principal_point: bool = False, extra: bool = True) -> np.ndarray:
+    """Per-parameter (MAX_PARAMS,) refinement mask for bundle adjustment:
+    the reference's defaults refine focal and extra parameters and hold the
+    principal point fixed unless asked."""
+    mid = CameraModelId(model_id)
+    fx, fy, cx, cy = _FXFY_CXCY[mid]
+    m = np.zeros(MAX_PARAMS, np.float32)
+    if focal:
+        m[fx] = m[fy] = 1.0
+    if principal_point:
+        m[cx] = m[cy] = 1.0
+    if extra:
+        for i in range(NUM_PARAMS[mid]):
+            if i not in (fx, fy, cx, cy):
+                m[i] = 1.0
+    return m
 
 
 def pad_params(params, dtype=np.float32) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Card-only checks of the port: the matcher kernel against its plain twin
-at edge cases, and the front end on CUDA against the same front end on the
+at edge cases, the front end on CUDA against the same front end on the
+CPU, and bundle adjustment and batched PnP registration on CUDA against the
 CPU. Every test needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
@@ -11,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from colmap_tpu_torch import bench_ba
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar
+from colmap_tpu_torch.estimators import bundle_adjustment as ba
+from colmap_tpu_torch.geometry import rigid3, rotation as rot
 from colmap_tpu_torch.features import hopper_matcher as hm
 from colmap_tpu_torch.features import matching as tm
 from colmap_tpu_torch.scene import synthetic_images as synth
 from colmap_tpu_torch.scene.database import Database
+from colmap_tpu_torch.sfm.incremental_mapper import _pnp_ransac_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +158,43 @@ def test_front_end_cuda_matches_cpu(cuda, tmp_path):
         assert abs(len(kc) - len(kg)) <= 0.02 * len(kc)
     assert set(c.read_all_two_view_geometries()) == set(
         g.read_all_two_view_geometries())
+
+
+def test_ba_cuda_matches_cpu(cuda):
+    # index_add_ sums in no fixed order on the card: a tolerance, not bits
+    problem, _ = bench_ba.build_problem(num_poses=40, num_points=3000,
+                                        obs_per_point=5, seed=3, device="cpu")
+    for refine in (False, True):
+        opts = ba.BAOptions(max_iterations=8, cg_iterations=20,
+                            loss="cauchy", refine_intrinsics=refine)
+        cpu = ba.solve(problem, opts)
+        gpu = ba.solve(ba.BAProblem(*(x.to(cuda) for x in problem)), opts)
+        assert gpu.cost.device.type == "cuda"
+        assert float(gpu.cost) < 0.01 * float(ba.compute_cost(problem, opts))
+        np.testing.assert_allclose(float(gpu.cost), float(cpu.cost),
+                                   rtol=1e-3)
+        np.testing.assert_allclose(gpu.problem.poses.cpu().numpy(),
+                                   cpu.problem.poses.numpy(), atol=1e-4)
+
+
+def test_pnp_batch_cuda_matches_cpu(cuda):
+    g = torch.Generator().manual_seed(1)
+    K, N = 8, 200
+    aa = 0.3 * torch.randn(K, 3, generator=g)
+    t = 0.5 * torch.randn(K, 3, generator=g) + torch.tensor([0.0, 0, 4])
+    pose = torch.cat([rot.quat_from_axis_angle(aa), t], 1)
+    X = 2 * torch.rand(K, N, 3, generator=g) - 1
+    pc = rigid3.apply(pose[:, None], X)
+    uv = pc[..., :2] / pc[..., 2:]
+    valid = torch.ones(K, N, dtype=torch.bool)
+    valid[2, 150:] = False
+    err = torch.full((K,), 4.0 / 800.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out[dev] = _pnp_ransac_batch(
+            gen, X.to(dev), uv.to(dev), valid.to(dev), err.to(dev),
+            num_samples=256)
+    np.testing.assert_array_equal(out[cuda][1], out["cpu"][1])
+    np.testing.assert_array_equal(out[cuda][1], valid.numpy())
+    np.testing.assert_allclose(out[cuda][0], pose.numpy(), atol=1e-3)

@@ -1,15 +1,18 @@
-"""The port's correspondence front end end to end, against the JAX package.
+"""The port end to end, against the JAX package.
 
-The 6x320x240 room render of tests/test_e2e_images.py goes through both
-packages' run_automatic_reconstruction(sparse=False): SIFT, exhaustive
-pairing, matching (the port's matcher kernel runs as its plain twin on the
-CPU) and two-view verification into a COLMAP database. Held:
+The 6x320x240 room render of tests/test_e2e_images.py goes through the JAX
+package's run_automatic_reconstruction(sparse=False) and the port's
+run_automatic_reconstruction(sparse=True): SIFT, exhaustive pairing,
+matching (the port's matcher kernel runs as its plain twin on the CPU) and
+two-view verification into a COLMAP database, then, in the port, the
+incremental mapper into workspace/sparse/0. Held:
 - per-image feature counts within 2%;
 - the same set of verified pairs;
 - each package reads the other's database;
 - the JAX IncrementalPipeline run on the *port's* database registers 6/6
   images within the JAX package's own pixels-to-poses gate (rotation
-  < 1 deg, centre < 0.05 x room size after Sim3 alignment).
+  < 1 deg, centre < 0.05 x room size after Sim3 alignment);
+- the port's own model, pixels to poses, passes the same gate.
 """
 
 import os
@@ -33,20 +36,23 @@ from colmap_tpu.geometry import rotation as jrot
 from colmap_tpu.scene.database import Database as JDatabase
 from colmap_tpu.scene.reconstruction import Camera, Image, Reconstruction
 from colmap_tpu_torch.controllers import automatic_reconstruction as tar
+from colmap_tpu_torch.estimators.similarity_transform import (
+    compare_reconstructions as tcompare)
 from colmap_tpu_torch.scene import synthetic_images as synth
 from colmap_tpu_torch.scene.database import Database as TDatabase
+from colmap_tpu_torch.scene.reconstruction_io import read_model as tread_model
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _options(mod, room, workspace):
+def _options(mod, room, workspace, sparse=False):
     K = room["K"]
     return mod.AutomaticReconstructionOptions(
         workspace_path=workspace, image_path=room["dir"],
         quality=mod.Quality.LOW, camera_model="PINHOLE", single_camera=True,
-        sparse=False,
+        sparse=sparse,
         camera_params=",".join(map(str, [K[0, 0], K[1, 1], K[0, 2],
                                          K[1, 2]])))
 
@@ -62,12 +68,16 @@ def room(tmp_path_factory):
     room = dict(K=K, Rs=Rs, ts=ts, dir=image_dir, names=names, opts=opts)
     _, jdb = jar.run_automatic_reconstruction(
         _options(jar, room, str(root / "jax")))
-    _, tdb = tar.run_automatic_reconstruction(
-        _options(tar, room, str(root / "port")), device="cpu")
+    stages = {}
+    room["port_rec"], tdb = tar.run_automatic_reconstruction(
+        _options(tar, room, str(root / "port"), sparse=True),
+        stage_timings=stages, device="cpu")
     jdb.close()
     tdb.close()
     room["jax_db"] = str(root / "jax" / "database.db")
     room["port_db"] = str(root / "port" / "database.db")
+    room["port_sparse"] = root / "port" / "sparse" / "0"
+    room["port_stages"] = stages
     return room
 
 
@@ -140,9 +150,25 @@ def test_jax_mapper_on_port_database(room):
     assert cmp["max_center_error"] < 0.05 * room["opts"].room_size, cmp
 
 
+def test_port_pixels_to_model(room):
+    rec = room["port_rec"]
+    assert rec is not None and rec.num_registered_images() == 6
+    db = TDatabase(room["port_db"])
+    cmp = tcompare(rec, _gt_reconstruction(room, _by_name(db)), device="cpu")
+    db.close()
+    assert cmp["max_rotation_error_deg"] < 1.0, cmp
+    assert cmp["max_center_error"] < 0.05 * room["opts"].room_size, cmp
+    back = tread_model(room["port_sparse"])
+    assert back.num_registered_images() == 6
+    assert len(back.points3D) == len(rec.points3D) > 100
+    stages = room["port_stages"]
+    assert stages["mapping"] > 0 and "global_ba" in stages["mapping_stages"]
+    assert stages["mapping_ba"]["gba_calls"] >= 1
+
+
 def test_unported_paths_raise(tmp_path):
     base = dict(workspace_path=str(tmp_path), image_path=str(tmp_path))
-    for kw in (dict(sparse=True), dict(sparse=False, dense=True),
+    for kw in (dict(sparse=False, dense=True),
                dict(sparse=False, data_type=tar.DataType.VIDEO)):
         with pytest.raises(NotImplementedError):
             tar.run_automatic_reconstruction(
@@ -151,7 +177,8 @@ def test_unported_paths_raise(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
-    """The port runs its front end without importing jax or colmap_tpu."""
+    """The port runs pixels to model without importing jax or
+    colmap_tpu."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -159,20 +186,21 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
         torch.set_num_threads(1)
         from colmap_tpu_torch.scene import synthetic_images as synth
         from colmap_tpu_torch.controllers import automatic_reconstruction as ar
-        o = synth.RoomDatasetOptions(num_images=3, width=160, height=128,
-                                     focal=150.0, seed=5)
+        o = synth.RoomDatasetOptions(num_images=3, width=320, height=240,
+                                     focal=280.0, seed=5)
         images, K, _, _ = synth.render_room_dataset(o)
         synth.write_dataset({str(tmp_path / "images")!r}, images)
-        _, db = ar.run_automatic_reconstruction(
+        rec, db = ar.run_automatic_reconstruction(
             ar.AutomaticReconstructionOptions(
                 workspace_path={str(tmp_path / "ws")!r},
                 image_path={str(tmp_path / "images")!r},
                 quality=ar.Quality.LOW, camera_model="PINHOLE",
-                single_camera=True, sparse=False,
+                single_camera=True, sparse=True,
                 camera_params=",".join(map(str, [K[0, 0], K[1, 1], K[0, 2],
                                                  K[1, 2]]))),
             device="cpu")
         assert db.num_images() == 3
+        assert rec is not None and rec.num_registered_images() == 3
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "colmap_tpu."))
                or m == "colmap_tpu"]

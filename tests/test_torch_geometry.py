@@ -291,3 +291,98 @@ def test_polynomial_roots():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_allclose(tr.numpy()[tv.numpy()],
                                np.asarray(jr)[np.asarray(jv)], atol=1e-4)
+
+
+def _se3_cases():
+    """(name, JAX function, port function, argument builder) of the SE3 /
+    Sim3 / pose functions the mapper and BA use; arguments are numpy."""
+    from colmap_tpu.estimators import similarity_transform as jst
+    from colmap_tpu.geometry import pose as jpose, rigid3 as jr, sim3 as js
+    from colmap_tpu_torch.estimators import similarity_transform as tst
+    from colmap_tpu_torch.geometry import pose as tpose, rigid3 as tr, sim3 as ts
+
+    def quats(r, n=16):
+        q = r.normal(size=(n, 4)).astype(np.float32)
+        return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+    def poses(r, n=16):
+        return np.concatenate([quats(r, n), r.normal(size=(n, 3)).astype(
+            np.float32)], -1)
+
+    def sims(r, n=16):
+        return np.concatenate([r.uniform(0.5, 2, (n, 1)).astype(np.float32),
+                               poses(r, n)], -1)
+
+    def vec(r, n=16, d=3, s=1.0):
+        return (s * r.normal(size=(n, d))).astype(np.float32)
+
+    def cheirality_args(r):
+        X = r.uniform(-1, 1, (32, 3)) + np.array([0, 0, 5.0])
+        pose = np.array([1, 0.05, 0, 0, -0.5, 0, 0], np.float32)
+        pose[:4] /= np.linalg.norm(pose[:4])
+        pc = np.asarray(jr.apply(jnp.asarray(pose), jnp.asarray(
+            X.astype(np.float32))))
+        return (pose, (X[:, :2] / X[:, 2:]).astype(np.float32),
+                (pc[:, :2] / pc[:, 2:]).astype(np.float32))
+
+    def sim3_args(r):
+        src = vec(r, 20)
+        s = sims(r, 1)[0]
+        dst = np.asarray(js.apply(jnp.asarray(s), jnp.asarray(src)))
+        return src, dst
+
+    return [
+        ("quat_multiply", jrot.quat_multiply, trot.quat_multiply,
+         lambda r: (quats(r), quats(r))),
+        ("quat_from_axis_angle", jrot.quat_from_axis_angle,
+         trot.quat_from_axis_angle, lambda r: (np.concatenate(
+             [vec(r, 8), vec(r, 8, s=1e-7)]),)),
+        ("quat_to_axis_angle", jrot.quat_to_axis_angle,
+         trot.quat_to_axis_angle, lambda r: (quats(r),)),
+        ("cross_matrix", jrot.cross_matrix, trot.cross_matrix,
+         lambda r: (vec(r),)),
+        ("quat_slerp", jrot.quat_slerp, trot.quat_slerp,
+         lambda r: (quats(r), quats(r), r.uniform(size=16).astype(
+             np.float32))),
+        ("rigid3.compose", jr.compose, tr.compose,
+         lambda r: (poses(r), poses(r))),
+        ("rigid3.inverse", jr.inverse, tr.inverse, lambda r: (poses(r),)),
+        ("rigid3.normalize", jr.normalize, tr.normalize,
+         lambda r: (2 * poses(r),)),
+        ("rigid3.from_matrix", jr.from_matrix, tr.from_matrix,
+         lambda r: (np.asarray(jr.to_matrix(jnp.asarray(poses(r)))),)),
+        ("rigid3.exp_update", jr.exp_update, tr.exp_update,
+         lambda r: (poses(r), vec(r, d=6, s=0.1))),
+        ("sim3.apply", js.apply, ts.apply, lambda r: (sims(r), vec(r))),
+        ("sim3.compose", js.compose, ts.compose,
+         lambda r: (sims(r), sims(r))),
+        ("sim3.inverse", js.inverse, ts.inverse, lambda r: (sims(r),)),
+        ("sim3.transform_rigid", js.transform_rigid, ts.transform_rigid,
+         lambda r: (sims(r), poses(r))),
+        ("pose.relative_pose", jpose.relative_pose, tpose.relative_pose,
+         lambda r: (poses(r), poses(r))),
+        ("pose.interpolate_pose", jpose.interpolate_pose,
+         tpose.interpolate_pose,
+         lambda r: (poses(r), poses(r), r.uniform(size=16).astype(
+             np.float32))),
+        ("pose.check_cheirality", jpose.check_cheirality,
+         tpose.check_cheirality, cheirality_args),
+        ("estimate_sim3", jst.estimate_sim3, tst.estimate_sim3, sim3_args),
+    ]
+
+
+@pytest.mark.parametrize("case", range(18))
+def test_se3_sim3_and_pose_match_jax(case):
+    """The rotation, rigid3, sim3, pose and Sim3-estimation functions that
+    the mapper and BA use agree with JAX elementwise within 1e-5."""
+    cases = _se3_cases()
+    assert len(cases) == 18
+    name, jfn, tfn, make = cases[case]
+    args = make(np.random.default_rng(case))
+    j = np.asarray(jfn(*map(jnp.asarray, args)))
+    t = tfn(*map(torch.as_tensor, args)).numpy()
+    if j.dtype == bool:
+        np.testing.assert_array_equal(t, j, err_msg=name)
+        assert j.all(), name
+    else:
+        np.testing.assert_allclose(t, j, atol=1e-5, err_msg=name)
