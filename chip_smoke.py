@@ -2,26 +2,33 @@
 
     python3 chip_smoke.py
 
-Runs colmap_tpu_torch (never jax or colmap_tpu) at the size of the repo's
-DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH (8192 features),
-one PINHOLE camera, exhaustive pairing (190 pairs in one block), then the
-incremental mapper. Phases:
+Runs colmap_tpu_torch (never jax or colmap_tpu) on two cells. The DSLR
+cell is the repo's DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH
+(8192 features), one PINHOLE camera, exhaustive pairing (190 pairs in one
+block), then the incremental mapper. The VIDEO cell is the JAX package's
+pixels-to-model run (scripts/full_scale_run.py) at its per-frame settings
+with the depth cut from 1000 frames to 100: a 640x480 orbit around a box
+(seed 3, one full turn, so the last frames revisit the first),
+Quality.LOW (2048 features), sequential matching with a window of 10, the
+quadratic jumps and vocab-tree loop detection (a tree of branching 16 and
+depth 3 trained from the database), then the mapper. Phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the matcher kernel (csrc/matcher_top2.cu) with nvcc;
-3. kernel against its plain twin on the card at (B=8, N=M=8192) and
-   (B=190, N=M=1024) with padding rows: indices exactly equal, best /
-   second / reverse best bit-equal; prints both times, the least time the
-   card could take (bound_ms, from B, N and M) and the kernel's share of
-   it, and at 8 x 8192^2 torch._int_mm over the same products (one call per
-   pair: a yardstick of an unfused route, which the port never calls);
-4. main path: run_automatic_reconstruction(sparse=True) on cuda, with the
-   kernel launch counter zeroed just before it and read just after; prints
-   the extraction, matching and mapping seconds, the mapper's stage
+3. kernel against its plain twin on the card at (B=8, N=M=8192), the DSLR
+   block (B=190, N=M=1024) and a VIDEO block (B=32, N=M=2048), with
+   padding rows: indices exactly equal, best / second / reverse best
+   bit-equal; prints both times, the least time the card could take
+   (bound_ms, from B, N and M), the kernel's share of it, and
+   torch._int_mm over the same products (one call per pair: a yardstick of
+   an unfused route, which the port never calls);
+4. DSLR main path: run_automatic_reconstruction(sparse=True) on cuda, with
+   the kernel launch counter zeroed just before it and read just after;
+   prints the extraction, matching and mapping seconds, the mapper's stage
    seconds, its BA counters (calls, LM iterations, CG steps, host
    synchronizations) and the peak device memory;
-5. outcome: every verified pair's relative rotation, recovered from its
-   stored E and inlier matches, within 1 deg of ground truth, and every
+5. DSLR outcome: every verified pair's relative rotation, recovered from
+   its stored E and inlier matches, within 1 deg of ground truth, and every
    image in a verified pair with >= 100 inliers; the model: all 20 images
    registered, after a Sim3 alignment to the ground truth every rotation
    within 1 deg and every centre within 0.05 x the room size (the gate the
@@ -31,14 +38,32 @@ incremental mapper. Phases:
 6. [ba]: one bundle adjustment at the JAX bench's size (bench.py:74-90:
    500 poses, 50k points, 300k observations, SIMPLE_RADIAL, 10 LM
    iterations of 20 CG steps, no early exit): LM iterations/s and the
-   top five device ops under torch.profiler (colmap_tpu_torch/bench_ba.py).
+   top five device ops under torch.profiler (colmap_tpu_torch/bench_ba.py);
+7. VIDEO main path: run_automatic_reconstruction(data_type=VIDEO,
+   sparse=True) on cuda, the launch counter zeroed just before and read
+   just after (at least one launch per pair block); prints the render,
+   extraction, matching and mapping seconds, the proposed pairs (window,
+   quadratic jumps, loop detection), the vocab tree's build, indexing and
+   query seconds (log lines), pair blocks and descriptor-pool builds, the
+   mapper's stages and BA counters and the peak device memory. Held: the
+   loop is closed (a verified pair joins one of the first 10 frames to one
+   of the last 10, which neither the window nor the jumps of 16/32/64
+   frames span); >= 95% of all verified inlier matches within 4 px
+   (Sampson) of the ground-truth epipolar geometry (the pairs' rotations
+   recovered from E are printed: on this scene of planes E is ambiguous
+   for many pairs, in the JAX package too, tests/test_torch_orbit_pairs.py);
+   and full_scale_run.py's gates: >= 95% of frames registered, max
+   rotation error <= 1 deg and max centre error <= 0.05 after a Sim3
+   alignment; sparse/0 reads back.
 
 The second-to-last line is the kernel report, one JSON object: its ms,
-plain_ms and bound_ms are those of the main path's shape (B=190,
-N=M=1024), `shapes` holds both shapes. The last line is {"ok": true,
+plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
+`launches` the DSLR path's count; `shapes` holds all three shapes and
+`launches_by_path` both paths' counts. The last line is {"ok": true,
 "device": {...}}. Any failed check exits nonzero.
 """
 
+import collections
 import json
 import logging
 import os
@@ -70,6 +95,9 @@ from colmap_tpu_torch.scene import synthetic_images as synth  # noqa: E402
 from colmap_tpu_torch.scene.reconstruction import (  # noqa: E402
     Camera, Image, Reconstruction)
 from colmap_tpu_torch.sensor import models as cam_models  # noqa: E402
+
+
+VIDEO_FRAMES = 100  # the JAX package's run has 1000; cut to fit the limit
 
 
 def fail(msg):
@@ -107,9 +135,10 @@ def main():
     report = {"name": "matcher_top2", "route": "cuda",
               "source": "colmap_tpu_torch/csrc/matcher_top2.cu",
               "replaces": "colmap_tpu/features/pallas_matcher.py:57",
-              "library_ms": None, "shapes": []}
+              "library_ms": None, "shapes": [], "launches_by_path": {}}
     max_err = 0.0
-    for B, n in ((8, 8192), (190, 1024)):
+    for B, n, label in ((8, 8192, "ceiling"), (190, 1024, "dslr"),
+                        (32, 2048, "video")):
         b1, b2 = random_blocks(B, n, seed=B)
         k = hm.top2_fwd_rev(b1, b2)
         r = hm._top2_fwd_rev_reference(b1, b2)
@@ -126,23 +155,22 @@ def main():
         plain_ms = cuda_ms(lambda: hm._top2_fwd_rev_reference(b1, b2), 3)
         ms = min(ms, cuda_ms(lambda: hm.top2_fwd_rev(b1, b2), 20))
         bound, bound_by = bound_ms(B, n, n)
-        shape = {"B": B, "N": n, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound, "share": bound / ms}
-        if B == 8:
-            shape["int_mm_ms"] = int_mm_ms(b1, b2, 5)
+        shape = {"path": label, "B": B, "N": n, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound, "share": bound / ms,
+                 "int_mm_ms": int_mm_ms(b1, b2, 5)}
         report["shapes"].append(shape)
-        phase(f"[kernel] B={B} N=M={n}: indices equal, best/second/rev "
+        phase(f"[kernel] {label} B={B} N=M={n}: indices equal, best/second/rev "
               f"bit-equal; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
               f"bound {bound:.4f} ms ({bound_by}), share of bound "
               f"{bound / ms:.4f}; int_mm {shape.get('int_mm_ms')} ms; "
               f"matched {float((m_k >= 0).float().mean())}")
-        if (B, n) == (190, 1024):  # the main path's shape
+        if label == "dslr":  # the DSLR main path's shape
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=bound_by)
         del b1, b2, k, r, m_k
     report["max_abs_err"] = max_err
 
-    # ---- 4. main path
+    # ---- 4, 5. the DSLR main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         main_path(work, report)
 
@@ -163,6 +191,10 @@ def main():
               for o in res["top_device_ops"]))
     if not res["cost_after"] < 0.01 * res["cost_before"]:
         fail("bundle adjustment did not lower the cost a hundredfold")
+
+    # ---- 7. the VIDEO main path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as work:
+        video_path(work, report)
 
     print(json.dumps({"kernels": [report]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -189,39 +221,18 @@ def main_path(work, report):
         camera_model="PINHOLE", single_camera=True, sparse=True,
         camera_params=",".join(map(str, [K[0, 0], K[1, 1], K[0, 2],
                                          K[1, 2]])))
-    stages = {}
-    torch.cuda.reset_peak_memory_stats()
-    hm.launches = 0
-    t0 = time.perf_counter()
-    rec, db = ar.run_automatic_reconstruction(opts, stage_timings=stages,
-                                              device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = hm.launches
+    rec, db, stages, launches = drive("main", opts)
     report["launches"] = launches
-    peak = torch.cuda.max_memory_allocated()
+    report["launches_by_path"]["dslr"] = launches
     ids = {im["name"]: iid for iid, im in db.read_images().items()}
     counts = [db.num_keypoints(ids[nm]) for nm in names]
     geoms = db.read_all_two_view_geometries()
-    phase(f"[main] stages s: extraction {stages['extraction']:.3f}, "
-          f"matching {stages['matching']:.3f}, mapping "
-          f"{stages['mapping']:.3f}, total {wall:.3f}")
-    phase("[main] mapping stages s: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in stages["mapping_stages"].items()))
-    mba = stages["mapping_ba"]
-    phase("[main] mapping BA: " + ", ".join(
-        f"{k} {v:.3f}" if isinstance(v, float) and not v.is_integer()
-        else f"{k} {int(v)}" for k, v in sorted(mba.items())))
-    phase(f"[main] BA host syncs: {int(mba['lba_syncs'])} in "
-          f"{int(mba['lba_calls'])} local BAs, {int(mba['gba_syncs'])} in "
-          f"{int(mba['gba_calls'])} global BAs")
     phase(f"[main] features per image: {counts}")
     phase(f"[main] matched pairs {db.num_matched_pairs()}, verified pairs "
           f"{len(geoms)} of {len(names) * (len(names) - 1) // 2}")
     n_blocks = sum(1 for _ in pairing.exhaustive_pairs(sorted(ids.values())))
     phase(f"[main] matcher kernel launches {launches} for {n_blocks} pair "
-          f"block(s); peak device memory {peak} bytes "
-          f"({peak / 2**30:.3f} GiB)")
+          f"block(s)")
     if launches < n_blocks:
         fail("the main path did not launch the matcher kernel for every "
              "pair block")
@@ -229,67 +240,28 @@ def main_path(work, report):
     # (CPU run); the port's CPU and GPU runs give the same count
     if min(counts) < 500:
         fail(f"too few features: {counts}")
-    for nm in names:
-        kp = db.read_keypoints(ids[nm])
-        if not (np.isfinite(kp).all() and (kp[:, 0] >= 0).all()
-                and (kp[:, 0] < 1536).all() and (kp[:, 1] >= 0).all()
-                and (kp[:, 1] < 1152).all()):
-            fail(f"keypoints of {nm} are not finite or leave the image")
+    check_keypoints(db, ids, names, 1536, 1152)
 
     # ---- 5. outcome against ground truth
-    cam = db.read_cameras()[db.read_images()[ids[names[0]]]["camera_id"]]
-    params = torch.as_tensor(cam_models.pad_params(list(cam["params"])))
-
-    def rays(iid):
-        xy = db.read_keypoints(iid)[:, :2].astype(np.float32)
-        return cam_models.cam_from_img(cam["model_id"], params,
-                                       torch.as_tensor(xy))
-
-    index = {ids[nm]: i for i, nm in enumerate(names)}
-    worst = 0.0
+    errors = pair_rotation_errors(db, ids, names, Rs)
     strong = set()
-    for (a, b) in sorted(geoms):
-        g = db.read_two_view_geometry(a, b)
-        m = g["inlier_matches"].astype(np.int64)
-        if len(m) >= 100:
+    for (a, b), (err, n_inl, config) in errors.items():
+        if n_inl >= 100:
             strong.update((a, b))
-        pose, _, _ = pose_from_essential_matrix(
-            torch.as_tensor(g["E"], dtype=torch.float32),
-            rays(a)[m[:, 0]], rays(b)[m[:, 1]])
-        R_rel = Rs[index[b]] @ Rs[index[a]].T
-        q_gt = rot.rotmat_to_quat(torch.as_tensor(R_rel, dtype=torch.float32))
-        err = float(rot.quat_angle_deg(q_gt, pose[:4]))
-        worst = max(worst, err)
         if err > 1.0:
             fail(f"pair ({a}, {b}): rotation {err:.4f} deg from ground truth "
-                 f"({len(m)} inliers, config {g['config']})")
+                 f"({n_inl} inliers, config {config})")
     phase(f"[outcome] {len(geoms)} verified pairs, max rotation error "
-          f"{worst:.6f} deg; images in a pair with >= 100 inliers: "
-          f"{len(strong)}/{len(names)}")
+          f"{max(e for e, _, _ in errors.values()):.6f} deg; images in a "
+          f"pair with >= 100 inliers: {len(strong)}/{len(names)}")
     if len(strong) != len(names):
         fail("an image has no verified pair with >= 100 inliers")
 
     # the model against ground truth
-    if rec is None:
-        fail("the mapper returned no model")
-    gt = Reconstruction()
-    gt.add_camera(Camera(camera_id=1, model_id=1, width=1536, height=1152,
-                         params=np.array([K[0, 0], K[1, 1], K[0, 2],
-                                          K[1, 2]])))
-    for i, nm in enumerate(names):
-        q = rot.rotmat_to_quat(torch.as_tensor(Rs[i], dtype=torch.float32))
-        gt.add_image(Image(image_id=ids[nm], name=nm, camera_id=1,
-                           cam_from_world=np.concatenate(
-                               [q.numpy(), ts[i]]).astype(np.float64)))
+    gt = gt_model(ids, names, K, Rs, ts, 1536, 1152)
     limit = 0.05 * ropts.room_size
-    n_reg = check_model("model", rec, gt, len(names), limit)
-    back = reconstruction_io.read_model(os.path.join(opts.workspace_path,
-                                                     "sparse", "0"))
-    if (back.num_registered_images() != n_reg
-            or len(back.points3D) != len(rec.points3D)):
-        fail("sparse/0 does not read back as the model written")
-    phase(f"[outcome] sparse/0 read back: {back.num_registered_images()} "
-          f"images, {len(back.points3D)} points")
+    check_model("model", rec, gt, len(names), len(names), limit)
+    check_read_back(rec, opts.workspace_path)
 
     # the mapper again on the same database, warm (the run above paid the
     # CUDA libraries' first loads)
@@ -300,30 +272,218 @@ def main_path(work, report):
     phase(f"[main] warm mapping {time.perf_counter() - t0:.3f} s; stages s: "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
               pipe.stage_s.items(), key=lambda kv: -kv[1])))
-    if warm is None:
-        fail("the warm mapper run returned no model")
-    check_model("warm model", warm, gt, len(names), limit)
+    check_model("warm model", warm, gt, len(names), len(names), limit)
     db.close()
 
 
-def check_model(label, rec, gt, n_images, limit):
-    """All `n_images` registered and, after a Sim3 alignment to the ground
-    truth `gt`, every rotation within 1 deg and every centre within
-    `limit`. Returns the registered count."""
+def video_path(work, report):
+    """Phase 7 in the scratch directory `work`: the VIDEO cell,
+    scripts/full_scale_run.py's per-frame settings at VIDEO_FRAMES."""
+    n = VIDEO_FRAMES
+    t0 = time.perf_counter()
+    oopts = synth.OrbitDatasetOptions(num_images=n, width=640, height=480,
+                                      focal=0.875 * 640, seed=3,
+                                      orbit_turns=1.0)
+    images, K, Rs, ts = synth.render_orbit_dataset(oopts)
+    names = synth.write_dataset(os.path.join(work, "images"), images)
+    phase(f"[render] {n} x 640x480 orbit in {time.perf_counter() - t0:.3f} s")
+    opts = ar.AutomaticReconstructionOptions(
+        workspace_path=os.path.join(work, "ws"),
+        image_path=os.path.join(work, "images"), data_type=ar.DataType.VIDEO,
+        quality=ar.Quality.LOW, camera_model="PINHOLE", single_camera=True,
+        sparse=True, video_overlap=10,
+        camera_params=",".join(map(str, [K[0, 0], K[1, 1], K[0, 2],
+                                         K[1, 2]])))
+    rec, db, stages, launches = drive("video", opts)
+    report["launches_by_path"]["video"] = launches
+    ids = {im["name"]: iid for iid, im in db.read_images().items()}
+    order = [ids[nm] for nm in names]
+    stats = stages["matching_stats"]
+    window = pairing.sequential_pairs(order, pairing.SequentialPairingOptions(
+        overlap=10, quadratic_overlap=False))
+    full = pairing.sequential_pairs(order, pairing.SequentialPairingOptions(
+        overlap=10))
+    counts = [db.num_keypoints(i) for i in order]
+    geoms = db.read_all_two_view_geometries()
+    phase(f"[video] features per frame: min {min(counts)}, max {max(counts)}")
+    phase(f"[video] proposed pairs {stats['num_pairs']}: window "
+          f"{len(window)}, quadratic {len(full) - len(window)}, loop "
+          f"detection {stats['num_pairs'] - len(full)}; matched "
+          f"{stats['num_matched_pairs']}, verified {len(geoms)}")
+    phase(f"[video] matcher kernel launches {launches} for "
+          f"{stats['num_blocks']} pair blocks; descriptor pool builds "
+          f"{stats['pool_builds']}")
+    if launches < stats["num_blocks"]:
+        fail("the VIDEO path did not launch the matcher kernel for every "
+             "pair block")
+    check_keypoints(db, ids, names, 640, 480)
+    gt = gt_model(ids, names, K, Rs, ts, 640, 480)
+    check_model("video model", rec, gt, n, int(np.ceil(0.95 * n)), 0.05)
+    check_read_back(rec, opts.workspace_path)
+
+    index = {iid: i for i, iid in enumerate(order)}
+    loops = [(a, b) for a, b in geoms if min(index[a], index[b]) < 10
+             and max(index[a], index[b]) >= n - 10]
+    phase(f"[video] verified pairs joining the first and last 10 frames: "
+          f"{len(loops)}")
+    if not loops:
+        fail("the loop is not closed: no verified pair joins the first and "
+             "last 10 frames")
+    # the pairs' rotations, as the DSLR phase reads them; on this scene of
+    # planes E is ambiguous for many pairs (PERF.md), so they are printed
+    errors = pair_rotation_errors(db, ids, names, Rs)
+    configs = collections.Counter(c for _, _, c in errors.values())
+    above = collections.Counter(c for e, _, c in errors.values() if e > 1.0)
+    phase(f"[video] {len(errors)} verified pairs, max rotation error "
+          f"{max(e for e, _, _ in errors.values()):.6f} deg, "
+          f"{sum(above.values())} above 1 deg (by config: "
+          f"{dict(sorted(above.items()))} of {dict(sorted(configs.items()))})")
+    # what verification promises: its inliers are true correspondences
+    on = true_inliers(db, ids, names, K, Rs, ts)
+    total = sum(cnt for _, cnt in on.values())
+    share = sum(o for o, _ in on.values()) / total
+    strong = [o / cnt for o, cnt in on.values() if cnt >= 100]
+    phase(f"[video] inlier matches within 4 px of the true epipolar "
+          f"geometry: {share:.6f} of {total}; "
+          f"pairs with >= 100 inliers: {len(strong)}, lowest share "
+          f"{min(strong):.4f}")
+    if share < 0.95:
+        fail(f"only {share:.4f} of the verified inlier matches lie on the "
+             "true epipolar geometry")
+    db.close()
+
+
+def drive(tag, opts):
+    """run_automatic_reconstruction(opts) on the card with the matcher's
+    launch counter zeroed just before and read just after; prints the
+    stage seconds, BA counters and peak device memory. Returns (rec, db,
+    stage timings, launches)."""
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    hm.launches = 0
+    t0 = time.perf_counter()
+    rec, db = ar.run_automatic_reconstruction(opts, stage_timings=stages,
+                                              device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hm.launches
+    peak = torch.cuda.max_memory_allocated()
+    phase(f"[{tag}] stages s: extraction {stages['extraction']:.3f}, "
+          f"matching {stages['matching']:.3f}, mapping "
+          f"{stages['mapping']:.3f}, total {wall:.3f}")
+    phase(f"[{tag}] mapping stages s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages["mapping_stages"].items()))
+    mba = stages["mapping_ba"]
+    phase(f"[{tag}] mapping BA: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) and not v.is_integer()
+        else f"{k} {int(v)}" for k, v in sorted(mba.items())))
+    phase(f"[{tag}] BA host syncs: {int(mba['lba_syncs'])} in "
+          f"{int(mba['lba_calls'])} local BAs, {int(mba['gba_syncs'])} in "
+          f"{int(mba['gba_calls'])} global BAs")
+    phase(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    return rec, db, stages, launches
+
+
+def check_keypoints(db, ids, names, width, height):
+    for nm in names:
+        kp = db.read_keypoints(ids[nm])
+        if not (np.isfinite(kp).all() and (kp[:, 0] >= 0).all()
+                and (kp[:, 0] < width).all() and (kp[:, 1] >= 0).all()
+                and (kp[:, 1] < height).all()):
+            fail(f"keypoints of {nm} are not finite or leave the image")
+
+
+def pair_rotation_errors(db, ids, names, Rs):
+    """{(a, b): (deg, inliers, config)} for every verified pair: its relative
+    rotation, recovered from the stored E and inlier matches, against the
+    ground truth `Rs` (world-to-camera, in the order of `names`)."""
+    cam = db.read_cameras()[db.read_images()[ids[names[0]]]["camera_id"]]
+    params = torch.as_tensor(cam_models.pad_params(list(cam["params"])))
+    rays = {}
+    for nm in names:
+        xy = db.read_keypoints(ids[nm])[:, :2].astype(np.float32)
+        rays[ids[nm]] = cam_models.cam_from_img(cam["model_id"], params,
+                                                torch.as_tensor(xy))
+    index = {ids[nm]: i for i, nm in enumerate(names)}
+    out = {}
+    for (a, b) in sorted(db.read_all_two_view_geometries()):
+        g = db.read_two_view_geometry(a, b)
+        m = g["inlier_matches"].astype(np.int64)
+        pose, _, _ = pose_from_essential_matrix(
+            torch.as_tensor(g["E"], dtype=torch.float32),
+            rays[a][m[:, 0]], rays[b][m[:, 1]])
+        R_rel = Rs[index[b]] @ Rs[index[a]].T
+        q_gt = rot.rotmat_to_quat(torch.as_tensor(R_rel, dtype=torch.float32))
+        out[(a, b)] = (float(rot.quat_angle_deg(q_gt, pose[:4])), len(m),
+                       g["config"])
+    return out
+
+
+def true_inliers(db, ids, names, K, Rs, ts, max_error_px=4.0):
+    """{(a, b): (on, inliers)} for every verified pair: how many of its
+    inlier matches lie within `max_error_px` (Sampson distance, the
+    verification's own threshold) of the ground-truth epipolar geometry."""
+    Ki = np.linalg.inv(K)
+    index = {ids[nm]: i for i, nm in enumerate(names)}
+    out = {}
+    for (a, b) in sorted(db.read_all_two_view_geometries()):
+        ia, ib = index[a], index[b]
+        R = Rs[ib] @ Rs[ia].T
+        t = ts[ib] - R @ ts[ia]
+        tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]],
+                       [-t[1], t[0], 0]])
+        F = Ki.T @ tx @ R @ Ki
+        m = db.read_two_view_geometry(a, b)["inlier_matches"].astype(np.int64)
+        x1 = np.c_[db.read_keypoints(a)[m[:, 0], :2], np.ones(len(m))]
+        x2 = np.c_[db.read_keypoints(b)[m[:, 1], :2], np.ones(len(m))]
+        Fx1, Ftx2 = x1 @ F.T, x2 @ F
+        sampson = np.sum(Fx1 * x2, 1) ** 2 / (
+            Fx1[:, 0] ** 2 + Fx1[:, 1] ** 2 + Ftx2[:, 0] ** 2
+            + Ftx2[:, 1] ** 2)
+        out[(a, b)] = (int((sampson <= max_error_px ** 2).sum()), len(m))
+    return out
+
+
+def gt_model(ids, names, K, Rs, ts, width, height):
+    gt = Reconstruction()
+    gt.add_camera(Camera(camera_id=1, model_id=1, width=width, height=height,
+                         params=np.array([K[0, 0], K[1, 1], K[0, 2],
+                                          K[1, 2]])))
+    for i, nm in enumerate(names):
+        q = rot.rotmat_to_quat(torch.as_tensor(Rs[i], dtype=torch.float32))
+        gt.add_image(Image(image_id=ids[nm], name=nm, camera_id=1,
+                           cam_from_world=np.concatenate(
+                               [q.numpy(), ts[i]]).astype(np.float64)))
+    return gt
+
+
+def check_model(label, rec, gt, n_images, min_registered, limit):
+    """At least `min_registered` of `n_images` registered and, after a Sim3
+    alignment to the ground truth `gt`, every rotation within 1 deg and
+    every centre within `limit`."""
+    if rec is None:
+        fail(f"{label}: the mapper returned no model")
     cmp = compare_reconstructions(rec, gt, device="cuda")
     n_reg = rec.num_registered_images()
     phase(f"[outcome] {label}: {n_reg}/{n_images} registered, "
           f"{len(rec.points3D)} points, max rotation error "
           f"{cmp['max_rotation_error_deg']:.6f} deg, max centre error "
           f"{cmp['max_center_error']:.6f} (limit {limit:.3f})")
-    if n_reg != n_images:
+    if n_reg < min_registered:
         fail(f"{label}: only {n_reg} of {n_images} images registered")
     if cmp["max_rotation_error_deg"] > 1.0:
         fail(f"{label}: a rotation is more than 1 deg from ground truth")
     if cmp["max_center_error"] > limit:
-        fail(f"{label}: a centre is more than 0.05 x room size from ground "
-             "truth")
-    return n_reg
+        fail(f"{label}: a centre is more than {limit:.3f} from ground truth")
+
+
+def check_read_back(rec, workspace):
+    back = reconstruction_io.read_model(os.path.join(workspace, "sparse", "0"))
+    if (back.num_registered_images() != rec.num_registered_images()
+            or len(back.points3D) != len(rec.points3D)):
+        fail("sparse/0 does not read back as the model written")
+    phase(f"[outcome] sparse/0 read back: {back.num_registered_images()} "
+          f"images, {len(back.points3D)} points")
 
 
 if __name__ == "__main__":

@@ -2,14 +2,15 @@
 
     python -m colmap_tpu_torch.bench_matcher [--other PATH.cu ...]
 
-At B=8, N=M=8192 (the capacity ceiling) and B=190, N=M=1024 (one DSLR
-pair block) it times, in one process on one card:
+At B=8, N=M=8192 (the capacity ceiling), B=190, N=M=1024 (one DSLR pair
+block) and B=32, N=M=2048 (one VIDEO pair block at Quality.LOW) it times,
+in one process on one card:
 - the kernel as built by the wrapper ("this");
 - `--other`: builds of other sources with the same C interface (for
   example an earlier commit's matcher_top2.cu, copied out of git), each
   under its file name;
-- the plain twin, and at 8 x 8192^2 `torch._int_mm` over the same
-  products (one call per pair; a yardstick the port never calls).
+- the plain twin, and `torch._int_mm` over the same products (one call
+  per pair; a yardstick the port never calls).
 `--ablate` adds two wrong-answer builds of this source, the products
 without the epilogue and the epilogue without the products, to show which
 limits it. Every other build is first held bit for bit against the twin.
@@ -35,7 +36,7 @@ from colmap_tpu_torch import cuda_build
 from colmap_tpu_torch.features import hopper_matcher as hm
 from colmap_tpu_torch.features import matching as mm
 
-SHAPES = ((8, 8192), (190, 1024))
+SHAPES = ((8, 8192), (190, 1024), (32, 2048))
 ABLATIONS = ("products_only", "epilogue_only")  # wrong answers, timed only
 
 # H100 SXM, published dense peaks at a 700 W power limit
@@ -228,9 +229,8 @@ def main(argv=None):
                "with_partials_ms": (matcher_bytes(B, n, n)
                                     + partial_bytes(B, n, n))
                / HBM_BYTES_PER_S * 1e3,
-               "share": {k: bound / min(v) for k, v in times.items()}}
-        if B == 8:
-            row["int_mm_ms"] = int_mm_ms(b1, b2, 5)
+               "share": {k: bound / min(v) for k, v in times.items()},
+               "int_mm_ms": int_mm_ms(b1, b2, 5)}
         print(json.dumps(row), flush=True)
         rows.append(row)
         del b1, b2

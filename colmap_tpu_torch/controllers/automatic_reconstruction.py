@@ -1,10 +1,11 @@
 """One-click reconstruction: images dir -> database -> sparse model.
 
 Port of colmap_tpu/controllers/automatic_reconstruction.py: feature
-extraction, exhaustive matching and, with `sparse=True`, the incremental
-mapper, whose model is written to workspace/sparse/0 in the binary format.
-The quality presets are the JAX package's. Dense reconstruction and the
-VIDEO data type are not ported yet and raise NotImplementedError.
+extraction, matching (exhaustive, or for VIDEO sequential with vocab-tree
+loop detection) and, with `sparse=True`, the incremental mapper, whose
+model is written to workspace/sparse/0 in the binary format. The quality
+presets are the JAX package's. Dense reconstruction is not ported yet and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from colmap_tpu_torch.controllers.incremental_pipeline import (
     IncrementalPipeline,
     IncrementalPipelineOptions,
 )
+from colmap_tpu_torch.features import pairing as pairing_mod
 from colmap_tpu_torch.features import sift as sift_mod
 from colmap_tpu_torch.scene import reconstruction_io
 from colmap_tpu_torch.scene.database import Database
@@ -53,6 +55,12 @@ class AutomaticReconstructionOptions:
     camera_params: str = ""
     sparse: bool = True
     dense: bool = False
+    # VIDEO sequential-matching temporal window (reference
+    # SequentialMatchingOptions.overlap). Slow orbital / small-baseline
+    # footage needs a window wide enough that some pair clears the
+    # mapper's 16-degree init triangulation-angle gate with
+    # init_min_num_inliers correspondences.
+    video_overlap: int = 10
 
     def sift_options(self) -> sift_mod.SiftExtractionOptions:
         # reference quality scaling (automatic_reconstruction.cc)
@@ -74,21 +82,21 @@ def run_automatic_reconstruction(
     stage_timings: Optional[dict] = None,
     device="cuda",
 ):
-    """Extraction + exhaustive matching on `device` into
-    workspace/database.db, then, with `options.sparse`, incremental mapping
-    into workspace/sparse/0. Returns (reconstruction | None, database).
+    """Extraction + matching on `device` into workspace/database.db, then,
+    with `options.sparse`, incremental mapping into workspace/sparse/0.
+    INDIVIDUAL and INTERNET data are matched exhaustively; VIDEO frames
+    sequentially in name order (window `video_overlap`) with vocab-tree
+    loop detection. Returns (reconstruction | None, database).
 
     `stage_timings`, when a dict, gets the wall seconds of "extraction",
-    "matching" and, when mapping ran, "mapping", the pipeline's per-stage
+    "matching" and, when mapping ran, "mapping", the matcher's counters
+    (MatchingStats) under "matching_stats", the pipeline's per-stage
     seconds under "mapping_stages" and its BA sub-timers and counters
     (calls, LM iterations, CG steps, host synchronizations) under
     "mapping_ba"."""
     if options.dense:
         raise NotImplementedError("dense reconstruction: ROADMAP queue 1 "
                                   "item 9")
-    if options.data_type == DataType.VIDEO:
-        raise NotImplementedError("sequential matching with loop detection "
-                                  "for VIDEO: ROADMAP queue 1 item 6")
     os.makedirs(options.workspace_path, exist_ok=True)
     database = Database(os.path.join(options.workspace_path, "database.db"))
     reader = fe.ImageReaderOptions(
@@ -102,12 +110,24 @@ def run_automatic_reconstruction(
                               options.sift_options(), device=device)
     t1 = time.perf_counter()
     logger.info("=== feature matching ===")
-    fm.match_exhaustive(database, fm.FeatureMatchingOptions(), seed=seed,
-                        device=device)
+    match_opts = fm.FeatureMatchingOptions()
+    if options.data_type == DataType.VIDEO:
+        # video sequences revisit places: vocab-tree loop detection joins
+        # the temporal window (reference automatic_reconstruction.cc wires
+        # SequentialMatching with loop detection for VIDEO)
+        stats = fm.match_sequential(
+            database, match_opts,
+            pairing=pairing_mod.SequentialPairingOptions(
+                overlap=options.video_overlap, loop_detection=True),
+            seed=seed, device=device)
+    else:
+        stats = fm.match_exhaustive(database, match_opts, seed=seed,
+                                    device=device)
     t2 = time.perf_counter()
     if stage_timings is not None:
         stage_timings["extraction"] = t1 - t0
         stage_timings["matching"] = t2 - t1
+        stage_timings["matching_stats"] = dataclasses.asdict(stats)
 
     rec = None
     if options.sparse:

@@ -9,8 +9,14 @@ Port of the single-device path of colmap_tpu/controllers/feature_matching.py:
 - the block is verified by the batched two-view cascade
   (estimators/two_view_geometry.py), split into pair chunks whose RANSAC
   sample draws stay within a memory budget;
+- with `guided_matching`, each verified pair is matched again with its
+  candidates gated by the epipolar constraint, both sides read from the
+  pool at the pool's one capacity;
 - matches and verified geometries are written to SQLite, one transaction
   per block.
+
+The strategies (exhaustive, sequential with loop detection, spatial,
+imported pairs, vocab tree, transitive) generate the pair blocks.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from colmap_tpu_torch.features import hopper_matcher
 from colmap_tpu_torch.features import matching as matching_mod
 from colmap_tpu_torch.features import pairing as pairing_mod
 from colmap_tpu_torch.features.sift import affine_to_keypoints
+from colmap_tpu_torch.retrieval import visual_index as vi_mod
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.sensor import models as camera_models
 
@@ -165,12 +172,27 @@ class _DevicePool:
         return hopper_matcher.match_pairs_batch_fused(
             b1, b2, options).cpu().numpy()
 
+    def block_view(self, image_id: int) -> matching_mod.DescriptorBlock:
+        """(cap, ...) DescriptorBlock view of one pooled image."""
+        s = self.slot_of[image_id]
+        return matching_mod.DescriptorBlock(
+            centered=self.centered[s], row_sum=self.row_sum[s],
+            inv_norm=self.inv_norm[s], valid=self.valid[s])
+
 
 @dataclasses.dataclass
 class MatchingStats:
     num_matched_pairs: int = 0
     num_verified_pairs: int = 0
     num_inlier_matches: int = 0
+    num_pairs: int = 0  # pairs handed to the matcher
+    num_blocks: int = 0  # pair blocks matched (one matcher call each)
+    pool_builds: int = 0  # descriptor pools allocated (capacity growth)
+
+    def add(self, other: "MatchingStats"):
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, getattr(self, f.name)
+                    + getattr(other, f.name))
 
 
 def _verify(generator, arrays: Dict[str, np.ndarray], opts, device):
@@ -198,8 +220,6 @@ def match_and_verify_blocks(
 ) -> MatchingStats:
     """Match + verify all pair blocks on `device` and persist matches and
     two-view geometries."""
-    if options.guided_matching:
-        raise NotImplementedError("guided matching: ROADMAP queue 1 item 3")
     if options.num_devices != 1:
         raise NotImplementedError("multi-device matching: ROADMAP queue 1 "
                                   "item 11")
@@ -228,8 +248,11 @@ def match_and_verify_blocks(
             size = max(options.descriptor_pool_size, 2 * options.block_pairs)
             pool = _DevicePool(cap, pool_size=min(size, len(data.images)),
                                device=device)
+            stats.pool_builds += 1
         pool.ensure([im for ab in block for im in ab], data)
         midx = pool.match_block(block, match_opts)
+        stats.num_pairs += len(block)
+        stats.num_blocks += 1
         t_match = time.perf_counter()
 
         # ---- per-pair correspondences (host) ----
@@ -276,6 +299,9 @@ def match_and_verify_blocks(
         t_verify = time.perf_counter()
         logger.info("pair block: %d pairs cap %d (match %.2fs, verify %.2fs)",
                     len(block), cap, t_match - t_block, t_verify - t_match)
+        guided = (_guided_matches(pool, data, block, pair_matches, res,
+                                  options, device)
+                  if options.guided_matching else {})
 
         for i, ((a, b), m) in enumerate(zip(block, pair_matches)):
             ni = int(res.num_inliers[i])
@@ -283,7 +309,10 @@ def match_and_verify_blocks(
                 continue
             if int(res.config[i]) == int(tvg.TwoViewConfig.WATERMARK):
                 continue  # reference: watermark pairs are not used
-            inlier_matches = m[res.inlier_mask[i][: len(m)]]
+            if i in guided:
+                inlier_matches = guided[i]
+            else:
+                inlier_matches = m[res.inlier_mask[i][: len(m)]]
             pose = res.cam2_from_cam1[i]
             database.write_two_view_geometry(
                 a, b, inlier_matches, config=int(res.config[i]),
@@ -296,6 +325,34 @@ def match_and_verify_blocks(
     return stats
 
 
+def _guided_matches(pool: _DevicePool, data: _ImageData, block,
+                    pair_matches, res, options: FeatureMatchingOptions,
+                    device) -> Dict[int, np.ndarray]:
+    """Guided matching of a block's verified pairs (reference: the guided
+    matcher workers, feature_matching_utils.cc): each side's descriptors
+    and keypoints at the pool's capacity, candidates gated by the pair's F.
+    Returns {pair index: matches} where the guided set is the larger."""
+    guided = {}
+    for i, ((a, b), m) in enumerate(zip(block, pair_matches)):
+        if len(m) == 0 or int(res.num_inliers[i]) < options.min_num_inliers:
+            continue
+        xy = []
+        for im in (a, b):
+            p = np.zeros((pool.cap, 2), np.float32)
+            kp = data.get(im)["xy"][:pool.cap]
+            p[:len(kp)] = kp
+            xy.append(torch.as_tensor(p, device=device))
+        gm = matching_mod.guided_match_descriptors(
+            pool.block_view(a), pool.block_view(b), xy[0], xy[1],
+            torch.as_tensor(res.F[i], dtype=torch.float32, device=device),
+            max_epipolar_error=options.verification.max_error_px,
+            options=options.matching)
+        gmp = matching_mod.matches_to_pairs(gm)
+        if len(gmp) > len(m):
+            guided[i] = gmp[: options.max_num_matches]
+    return guided
+
+
 def match_exhaustive(database: Database,
                      options: FeatureMatchingOptions = FeatureMatchingOptions(),
                      pairing: Optional[pairing_mod.ExhaustivePairingOptions] = None,
@@ -304,3 +361,100 @@ def match_exhaustive(database: Database,
     blocks = pairing_mod.exhaustive_pairs(
         ids, pairing or pairing_mod.ExhaustivePairingOptions())
     return match_and_verify_blocks(database, blocks, options, seed, device)
+
+
+def _chunk(pairs: List[Tuple[int, int]], n: int):
+    for i in range(0, len(pairs), n):
+        yield pairs[i:i + n]
+
+
+def _filter_existing(database: Database, pairs):
+    """Skip pairs with an existing two-view geometry (reference:
+    FeatureMatcherCache existing-match checks — re-running a matcher over
+    a partially matched database only matches the NEW pairs)."""
+    done = {tuple(sorted(k)) for k in database.read_all_two_view_geometries()}
+    if not done:
+        return pairs
+    return [p for p in pairs if tuple(sorted(p)) not in done]
+
+
+def match_sequential(database: Database,
+                     options: FeatureMatchingOptions = FeatureMatchingOptions(),
+                     pairing: Optional[pairing_mod.SequentialPairingOptions] = None,
+                     seed: int = 0, device="cuda") -> MatchingStats:
+    """Sequential matching of the images in name order, with vocab-tree
+    loop detection when `pairing.loop_detection` is set (reference:
+    SequentialFeatureMatcher, SequentialPairGenerator)."""
+    images = database.read_images()
+    ids = [iid for iid, _ in sorted(images.items(), key=lambda kv: kv[1]["name"])]
+    popts = pairing or pairing_mod.SequentialPairingOptions()
+    pairs = pairing_mod.sequential_pairs(ids, popts)
+    num_sequential = len(pairs)
+    if popts.loop_detection:
+        # vocab-tree loop closure (reference: SequentialPairGenerator,
+        # feature/pairing.h:89-110) — retrieval pairs join the temporal set
+        loop = pairing_mod.sequential_loop_detection_pairs(
+            database, ids, popts, seed=seed, device=device)
+        pairs = sorted(set(pairs) | set(loop))
+    new = _filter_existing(database, pairs)
+    logger.info("sequential pairs: %d from the window, %d more from loop "
+                "detection; %d already verified are skipped", num_sequential,
+                len(pairs) - num_sequential, len(pairs) - len(new))
+    return match_and_verify_blocks(
+        database, _chunk(new, options.block_pairs), options, seed, device)
+
+
+def match_spatial(database: Database,
+                  options: FeatureMatchingOptions = FeatureMatchingOptions(),
+                  pairing: Optional[pairing_mod.SpatialPairingOptions] = None,
+                  seed: int = 0, device="cuda") -> MatchingStats:
+    """Spatial matching by pose priors (reference: SpatialFeatureMatcher)."""
+    pairs = pairing_mod.spatial_pairs_from_database(
+        database, pairing or pairing_mod.SpatialPairingOptions(), device)
+    return match_and_verify_blocks(
+        database, _chunk(pairs, options.block_pairs), options, seed, device)
+
+
+def match_pairs(database: Database, pairs: List[Tuple[int, int]],
+                options: FeatureMatchingOptions = FeatureMatchingOptions(),
+                seed: int = 0, device="cuda") -> MatchingStats:
+    """Imported pair list (reference: ImportedPairGenerator)."""
+    return match_and_verify_blocks(
+        database, _chunk(pairs, options.block_pairs), options, seed, device)
+
+
+def match_vocab_tree(database: Database,
+                     options: FeatureMatchingOptions = FeatureMatchingOptions(),
+                     vocab_tree_path: Optional[str] = None,
+                     num_neighbors: int = 5,
+                     seed: int = 0, device="cuda") -> MatchingStats:
+    """Vocab-tree retrieval matching (reference: VocabTreeFeatureMatcher,
+    controllers/feature_matching.h). Builds (or loads) the visual index,
+    retrieves each image's neighbors, matches those pairs."""
+    if vocab_tree_path:
+        vi = vi_mod.VisualIndex.load(vocab_tree_path, device=device)
+    else:
+        vi = vi_mod.build_vocab_tree_from_database(
+            database, vi_mod.VisualIndexOptions(), seed=seed, device=device)
+    pairs = vi_mod.vocab_tree_pairs(database, vi, num_neighbors)
+    return match_and_verify_blocks(
+        database, _chunk(pairs, options.block_pairs), options, seed, device)
+
+
+def match_transitive(database: Database,
+                     options: FeatureMatchingOptions = FeatureMatchingOptions(),
+                     num_iterations: int = 3,
+                     seed: int = 0, device="cuda") -> MatchingStats:
+    """Transitive closure matching (reference: TransitiveFeatureMatcher)."""
+    total = MatchingStats()
+    for _ in range(num_iterations):
+        existing = [k for k in database.read_all_two_view_geometries()]
+        new_pairs = pairing_mod.transitive_pairs(existing)
+        new_pairs = [p for p in new_pairs
+                     if database.read_matches(*p) is None]
+        if not new_pairs:
+            break
+        total.add(match_and_verify_blocks(
+            database, _chunk(new_pairs, options.block_pairs), options, seed,
+            device))
+    return total

@@ -10,8 +10,9 @@ Every term is an integer below 2^24, so an f32 product of the centered
 values is exact (TF32 is off, see colmap_tpu_torch/__init__.py).
 
 This module holds the exact matcher that materializes the (B, N, M)
-similarities. The main path on a CUDA device runs the fused kernel in
-features/hopper_matcher.py instead.
+similarities, and the guided matcher, which gates them by epipolar
+distance. The main path on a CUDA device runs the fused kernel in
+features/hopper_matcher.py instead of the exact matcher.
 """
 
 from __future__ import annotations
@@ -132,6 +133,32 @@ def match_pairs_batch(b1: DescriptorBlock, b2: DescriptorBlock,
     batch axis): b1/b2 hold (B, N, ...) arrays. Materializes the (B, N, M)
     similarities; returns (B, N) int32 indices into b2 (-1 = none)."""
     return _select_matches(_cosine_similarities(b1, b2), b1, b2, options)
+
+
+def guided_match_descriptors(
+    b1: DescriptorBlock, b2: DescriptorBlock,
+    xy1: torch.Tensor, xy2: torch.Tensor, F: torch.Tensor,
+    max_epipolar_error: float,
+    options: MatchingOptions = MatchingOptions(),
+) -> torch.Tensor:
+    """Guided matching of one pair: candidates gated by their Sampson
+    distance under F (x2^T F x1 = 0), then the usual ratio, distance and
+    cross checks. b1/b2 hold (N, ...) and (M, ...) rows, xy1/xy2 the (N, 2)
+    and (M, 2) keypoints at the same capacities. Returns (N,) int32
+    indices into b2 (-1 = none). Reference: guided matching with an E/F
+    constraint (feature/sift.cc:1508)."""
+    sims = _cosine_similarities(b1, b2)
+    h1 = torch.cat([xy1, torch.ones_like(xy1[:, :1])], dim=-1)  # (N, 3)
+    h2 = torch.cat([xy2, torch.ones_like(xy2[:, :1])], dim=-1)  # (M, 3)
+    Fx1 = h1 @ F.T  # (N, 3)
+    Ftx2 = h2 @ F  # (M, 3)
+    num = Fx1 @ h2.T  # x2^T F x1, (N, M)
+    denom = (Fx1[:, 0:1] ** 2 + Fx1[:, 1:2] ** 2
+             + (Ftx2[:, 0] ** 2 + Ftx2[:, 1] ** 2)[None, :])
+    sampson = num * num / torch.clamp(denom, min=1e-12)
+    sims = torch.where(sampson <= max_epipolar_error ** 2, sims,
+                       torch.tensor(float("-inf"), device=sims.device))
+    return _select_matches(sims, b1, b2, options)
 
 
 def matches_to_pairs(match_idx) -> np.ndarray:

@@ -13,6 +13,7 @@ from colmap_tpu_torch import cuda_build
 
 @pytest.mark.parametrize("B,n,ms,by", [(8, 8192, 0.069449, "operations"),
                                        (190, 1024, 0.025772, "operations"),
+                                       (32, 2048, 0.017362, "operations"),
                                        (1, 64, 0.0000056167, "bytes")])
 def test_bound_is_the_larger_of_bytes_and_operations(B, n, ms, by):
     bound, bound_by = bm.bound_ms(B, n, n)

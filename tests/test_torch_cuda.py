@@ -1,6 +1,8 @@
 """Card-only checks of the port: the matcher kernel against its plain twin
-at edge cases, the front end on CUDA against the same front end on the
-CPU, and bundle adjustment and batched PnP registration on CUDA against the
+at edge cases and at the VIDEO block's shape, the front end on CUDA
+against the same front end on the CPU, bundle adjustment and batched PnP
+registration on CUDA against the CPU, and the vocab tree's k-means and
+quantiser and sequential matching with loop detection on CUDA against the
 CPU. Every test needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
@@ -12,12 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from colmap_tpu_torch import bench_ba
+from colmap_tpu_torch import bench_ba, bench_matcher
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar
+from colmap_tpu_torch.controllers import feature_extraction as fe
+from colmap_tpu_torch.controllers import feature_matching as fm
 from colmap_tpu_torch.estimators import bundle_adjustment as ba
 from colmap_tpu_torch.geometry import rigid3, rotation as rot
 from colmap_tpu_torch.features import hopper_matcher as hm
 from colmap_tpu_torch.features import matching as tm
+from colmap_tpu_torch.features import pairing
+from colmap_tpu_torch.features import sift as sift_mod
+from colmap_tpu_torch.retrieval import kmeans as km
+from colmap_tpu_torch.retrieval import visual_index as vi_mod
 from colmap_tpu_torch.scene import synthetic_images as synth
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.sfm.incremental_mapper import _pnp_ransac_batch
@@ -198,3 +206,81 @@ def test_pnp_batch_cuda_matches_cpu(cuda):
     np.testing.assert_array_equal(out[cuda][1], out["cpu"][1])
     np.testing.assert_array_equal(out[cuda][1], valid.numpy())
     np.testing.assert_allclose(out[cuda][0], pose.numpy(), atol=1e-3)
+
+
+def test_kernel_equals_twin_at_the_video_block(cuda):
+    # one VIDEO pair block at Quality.LOW: 32 pairs at capacity 2048
+    b1, b2 = bench_matcher.random_blocks(32, 2048, seed=32)
+    _assert_kernel_equals_twin(b1, b2)
+
+
+def test_kmeans_and_quantize_cuda_match_cpu(cuda):
+    # 16 separated clusters and one initial centre in each: no cluster is
+    # split, so no assignment sits near a tie that rounding could flip
+    rng = np.random.default_rng(4)
+    protos = rng.uniform(0, 255, (16, 128))
+    label = np.arange(4000) % 16
+    pts = np.clip(protos[label] + rng.normal(0, 6, (4000, 128)), 0, 255)
+    pts = torch.as_tensor((pts / 512.0).astype(np.float32))
+    init = pts[:16]
+    out = {dev: km.kmeans_from_centers(pts.to(dev), init.to(dev), 15)
+           for dev in ("cpu", cuda)}
+    assert torch.equal(out[cuda][1].cpu(), out["cpu"][1])
+    assert torch.equal(out["cpu"][1].long(), torch.as_tensor(label))
+    np.testing.assert_allclose(out[cuda][0].cpu().numpy(),
+                               out["cpu"][0].numpy(), atol=1e-5)
+    # one tree, quantised on both devices: the direct-difference sums run
+    # in another order on the card, so a word near a tie may flip
+    vi = vi_mod.VisualIndex(vi_mod.VisualIndexOptions(branching=8, depth=2),
+                            device="cpu")
+    desc = (pts.numpy() * 512).astype(np.uint8)
+    vi.build(desc, seed=0)
+    words = {dev: km.quantize(vi.levels, vi._prep(desc), device=dev)
+             for dev in ("cpu", cuda)}
+    assert (words[cuda] == words["cpu"]).mean() >= 0.999
+    # the build on the card consumes the numpy stream as on the CPU
+    vg = vi_mod.VisualIndex(vi_mod.VisualIndexOptions(branching=8, depth=2),
+                            device=cuda)
+    vg.build(desc, seed=0)
+    np.testing.assert_array_equal(vg.proj, vi.proj)
+    assert [t.shape for t in vg.levels] == [t.shape for t in vi.levels]
+
+
+def test_match_sequential_with_loop_detection_cuda_matches_cpu(cuda,
+                                                             tmp_path):
+    # a walk along the room's camera arc and back: the 10th frame, the one
+    # loop-detection query, revisits the start
+    o = synth.RoomDatasetOptions(num_images=12, width=320, height=240,
+                                 focal=280.0, seed=5)
+    images, K, _, _ = synth.render_room_dataset(o)
+    arc = [0, 2, 4, 6, 8, 10, 9, 7, 5, 3]
+    synth.write_dataset(str(tmp_path / "images"), [images[i] for i in arc])
+    db = Database(str(tmp_path / "cpu.db"))
+    fe.run_feature_extraction(
+        db, str(tmp_path / "images"),
+        fe.ImageReaderOptions(camera_model="PINHOLE", single_camera=True,
+                              camera_params=",".join(map(str, [
+                                  K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))),
+        sift_mod.SiftExtractionOptions(max_image_size=1000,
+                                       max_num_features=2048), device="cpu")
+    db.close()
+    import shutil
+    shutil.copy(str(tmp_path / "cpu.db"), str(tmp_path / "gpu.db"))
+    popts = pairing.SequentialPairingOptions(overlap=2, loop_detection=True)
+    found = {}
+    for dev, name in (("cpu", "cpu.db"), (cuda, "gpu.db")):
+        db = Database(str(tmp_path / name))
+        ids = [i for i, _ in sorted(db.read_images().items(),
+                                    key=lambda kv: kv[1]["name"])]
+        loop = pairing.sequential_loop_detection_pairs(db, ids, popts,
+                                                       device=dev)
+        before = hm.launches
+        stats = fm.match_sequential(db, fm.FeatureMatchingOptions(), popts,
+                                    device=dev)
+        assert (hm.launches > before) == (dev == cuda)
+        found[dev] = (loop, stats.num_pairs,
+                      set(db.read_all_two_view_geometries()))
+        assert (min(ids[0], ids[-1]), max(ids[0], ids[-1])) in found[dev][2]
+        db.close()
+    assert found[cuda][:2] == found["cpu"][:2]
+    assert found[cuda][2] == found["cpu"][2]

@@ -36,6 +36,7 @@ from colmap_tpu.geometry import rotation as jrot
 from colmap_tpu.scene.database import Database as JDatabase
 from colmap_tpu.scene.reconstruction import Camera, Image, Reconstruction
 from colmap_tpu_torch.controllers import automatic_reconstruction as tar
+from colmap_tpu_torch.controllers import feature_matching as tfm
 from colmap_tpu_torch.estimators.similarity_transform import (
     compare_reconstructions as tcompare)
 from colmap_tpu_torch.scene import synthetic_images as synth
@@ -168,17 +169,21 @@ def test_port_pixels_to_model(room):
 
 def test_unported_paths_raise(tmp_path):
     base = dict(workspace_path=str(tmp_path), image_path=str(tmp_path))
-    for kw in (dict(sparse=False, dense=True),
-               dict(sparse=False, data_type=tar.DataType.VIDEO)):
-        with pytest.raises(NotImplementedError):
-            tar.run_automatic_reconstruction(
-                tar.AutomaticReconstructionOptions(**base, **kw),
-                device="cpu")
+    with pytest.raises(NotImplementedError):
+        tar.run_automatic_reconstruction(
+            tar.AutomaticReconstructionOptions(**base, sparse=False,
+                                               dense=True), device="cpu")
+    db = TDatabase(":memory:")
+    with pytest.raises(NotImplementedError):
+        tfm.match_and_verify_blocks(
+            db, [], tfm.FeatureMatchingOptions(num_devices=2), device="cpu")
+    db.close()
 
 
 def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
-    """The port runs pixels to model without importing jax or
-    colmap_tpu."""
+    """The port runs the VIDEO path pixels to model (sequential pairing,
+    vocab-tree loop detection) and imports the retrieval, pairing and GPS
+    modules without importing jax or colmap_tpu."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -186,6 +191,10 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
         torch.set_num_threads(1)
         from colmap_tpu_torch.scene import synthetic_images as synth
         from colmap_tpu_torch.controllers import automatic_reconstruction as ar
+        from colmap_tpu_torch.features import pairing
+        from colmap_tpu_torch.geometry import gps
+        from colmap_tpu_torch.retrieval import (kmeans, visual_index,
+                                                vote_and_verify)
         o = synth.RoomDatasetOptions(num_images=3, width=320, height=240,
                                      focal=280.0, seed=5)
         images, K, _, _ = synth.render_room_dataset(o)
@@ -194,6 +203,7 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
             ar.AutomaticReconstructionOptions(
                 workspace_path={str(tmp_path / "ws")!r},
                 image_path={str(tmp_path / "images")!r},
+                data_type=ar.DataType.VIDEO,
                 quality=ar.Quality.LOW, camera_model="PINHOLE",
                 single_camera=True, sparse=True,
                 camera_params=",".join(map(str, [K[0, 0], K[1, 1], K[0, 2],

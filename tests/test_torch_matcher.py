@@ -166,3 +166,44 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
     with pytest.raises(ValueError):
         hm.top2_fwd_rev(tb1, tm.DescriptorBlock(
             *(torch.cat([x, x]) for x in tb2)))  # pair counts differ
+
+
+@pytest.mark.parametrize("max_err", [1.0, 4.0])
+def test_guided_matcher_equals_jax(rng, max_err):
+    """guided_match_descriptors on one pair at equal capacities: two views
+    of random points, so the true matches satisfy x2^T F x1 = 0; a quarter
+    of the second view's keypoints are moved off their epipolar lines."""
+    n = 256
+    K = np.array([[300.0, 0, 128], [0, 300, 128], [0, 0, 1]])
+    a = 0.1
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([0.5, 0.05, 0.0])
+    X = rng.uniform([-2, -2, 4], [2, 2, 8], (n, 3))
+    x1 = X @ K.T
+    x1 = x1[:, :2] / x1[:, 2:]
+    x2 = (X @ R.T + t) @ K.T
+    x2 = x2[:, :2] / x2[:, 2:]
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    Kinv = np.linalg.inv(K)
+    F = Kinv.T @ tx @ R @ Kinv
+    F = (F / np.linalg.norm(F)).astype(np.float32)
+    d1, d2, v1, v2 = _pair_batch(rng, B=2, n=n)  # pair 0 has padding rows
+    perm = rng.permutation(n)  # d2's rows are d1's rows in this order
+    d2[0] = np.clip(d1[0, perm].astype(int)
+                    + rng.integers(-3, 4, (n, 128)), 0, 255)
+    xy1 = x1.astype(np.float32)
+    xy2 = x2[perm].astype(np.float32)
+    xy2[: n // 4] += rng.uniform(-20, 20, (n // 4, 2)).astype(np.float32)
+    jb1, jb2, tb1, tb2 = _both(d1, d2, v1, v2)
+    ref = np.asarray(jm.guided_match_descriptors(
+        jax.tree.map(lambda x: x[0], jb1), jax.tree.map(lambda x: x[0], jb2),
+        jnp.asarray(xy1), jnp.asarray(xy2), jnp.asarray(F), max_err))
+    out = tm.guided_match_descriptors(
+        tm.DescriptorBlock(*(x[0] for x in tb1)),
+        tm.DescriptorBlock(*(x[0] for x in tb2)),
+        torch.as_tensor(xy1), torch.as_tensor(xy2), torch.as_tensor(F),
+        max_err).numpy()
+    assert out.shape == ref.shape == (n,)
+    assert (out == ref).mean() >= 0.999
+    assert 0.3 * n < (out >= 0).sum() < 0.9 * n  # the gate removes matches
