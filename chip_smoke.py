@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Runs colmap_tpu_torch (never jax or colmap_tpu) on two cells. The DSLR
+Runs colmap_tpu_torch (never jax or colmap_tpu) on three cells. The DSLR
 cell is the repo's DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH
 (8192 features), one PINHOLE camera, exhaustive pairing (190 pairs in one
 block), then the incremental mapper. The VIDEO cell is the JAX package's
@@ -11,7 +11,13 @@ with the depth cut from 1000 frames to 100: a 640x480 orbit around a box
 (seed 3, one full turn, so the last frames revisit the first),
 Quality.LOW (2048 features), sequential matching with a window of 10, the
 quadratic jumps and vocab-tree loop detection (a tree of branching 16 and
-depth 3 trained from the database), then the mapper. Phases:
+depth 3 trained from the database), then the mapper. The hierarchical cell
+is the JAX package's hierarchical gate (HIER_GATE_r05.json,
+scripts/hierarchical_timing.py) at full size: a synthetic match database
+of 200 images on a circle (SIMPLE_RADIAL 1024x768, 4000 points each seen
+by its 40 nearest cameras, 0.5 px noise, chained matches of overlap 10,
+seed 3) mapped by the hierarchical mapper in leaves of 60 images with 50
+overlap images on 4 worker threads. Phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the matcher kernel (csrc/matcher_top2.cu) with nvcc;
@@ -54,12 +60,22 @@ depth 3 trained from the database), then the mapper. Phases:
    for many pairs, in the JAX package too, tests/test_torch_orbit_pairs.py);
    and full_scale_run.py's gates: >= 95% of frames registered, max
    rotation error <= 1 deg and max centre error <= 0.05 after a Sim3
-   alignment; sparse/0 reads back.
+   alignment; sparse/0 reads back;
+8. hierarchical: synthesize the database, then HierarchicalPipeline on
+   cuda with the launch counter zeroed just before and read just after
+   (K1 is not on this path: it reads a match database); prints the leaves'
+   sizes and the clustering seconds, each cluster's mapping seconds and
+   registered images, the merge seconds (alignment, pose graph, fusion),
+   the wall seconds, the clusters' summed mapper stages and BA counters and
+   the peak device memory. Held: scripts/hierarchical_timing.py's gate, at
+   least 190 of 200 images registered and, after a Sim3 alignment to the
+   ground truth, every rotation within 1 deg and every centre within 0.05.
+   A cluster that raises fails the phase.
 
 The second-to-last line is the kernel report, one JSON object: its ms,
 plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
 `launches` the DSLR path's count; `shapes` holds all three shapes and
-`launches_by_path` both paths' counts. The last line is {"ok": true,
+`launches_by_path` every path's count. The last line is {"ok": true,
 "device": {...}}. Any failed check exits nonzero.
 """
 
@@ -77,7 +93,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from colmap_tpu_torch import bench_ba, cuda_build  # noqa: E402
+from colmap_tpu_torch import bench_ba, bench_hierarchical, cuda_build  # noqa: E402
 from colmap_tpu_torch.bench_matcher import (  # noqa: E402
     bound_ms, cuda_ms, int_mm_ms, random_blocks)
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar  # noqa: E402
@@ -195,6 +211,9 @@ def main():
     # ---- 7. the VIDEO main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as work:
         video_path(work, report)
+
+    # ---- 8. the hierarchical cell
+    hierarchical_path(report)
 
     print(json.dumps({"kernels": [report]}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -350,6 +369,45 @@ def video_path(work, report):
     if share < 0.95:
         fail(f"only {share:.4f} of the verified inlier matches lie on the "
              "true epipolar geometry")
+    db.close()
+
+
+def hierarchical_path(report):
+    """Phase 8: the hierarchical gate on the card."""
+    t0 = time.perf_counter()
+    db, gt = bench_hierarchical.build_db(200, seed=3)
+    phase(f"[hier] synthesized {db.num_images()} images, "
+          f"{db.num_verified_pairs()} verified pairs in "
+          f"{time.perf_counter() - t0:.3f} s")
+    hm.launches = 0
+    run, rec = bench_hierarchical.run_once(db, gt, num_workers=4,
+                                           leaf_max_images=60, device="cuda")
+    report["launches_by_path"]["hierarchical"] = hm.launches
+    tm = run["timings"]
+    phase(f"[hier] leaves {run['leaves']}; clustering "
+          f"{tm['clustering']:.3f} s, caches {tm['caches']:.3f} s")
+    for k, c in enumerate(run["clusters"]):
+        phase(f"[hier] cluster {k}: {c['registered']}/{c['images']} "
+              f"registered in {c['seconds']:.3f} s; autodiff lock waited "
+              f"{c['ad_lock_wait_s']:.3f} s, held {c['ad_lock_held_s']:.3f} s")
+    phase(f"[hier] mapping (4 workers) {tm['mapping']:.3f} s; merge: "
+          f"alignment {tm['align']:.3f} s, pose graph "
+          f"{tm['pose_graph']:.3f} s, fusion {tm['fuse']:.3f} s; wall "
+          f"{run['wall_s']:.3f} s")
+    phase("[hier] mapper stages s, summed over clusters: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(run["stage_s"].items(),
+                                          key=lambda kv: -kv[1])))
+    ba = run["ba_stats"]
+    phase(f"[hier] BA, summed over clusters: {int(ba['gba_calls'])} global "
+          f"({int(ba['gba_lm_iters'])} LM iterations, "
+          f"{int(ba['gba_cg_steps'])} CG steps, {int(ba['gba_syncs'])} host "
+          f"syncs), {int(ba['lba_calls'])} local ({int(ba['lba_lm_iters'])} "
+          f"LM iterations, {int(ba['lba_cg_steps'])} CG steps, "
+          f"{int(ba['lba_syncs'])} host syncs)")
+    peak = run["peak_bytes"]
+    phase(f"[hier] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
+          f"matcher kernel launches {hm.launches} (not on this path)")
+    check_model("hierarchical model", rec, gt, 200, 190, 0.05)
     db.close()
 
 

@@ -46,6 +46,11 @@ class IncrementalPipelineOptions:
     min_num_matches: int = 15
     ba_global_images_ratio: float = 1.1  # reference growth trigger
     ba_global_points_ratio: float = 1.1
+    # from `ba_global_coarse_cadence_size` registered images on, both growth
+    # ratios relax to `ba_global_images_ratio_large` (the JAX package's
+    # large-model cadence; 1.1 keeps the reference's flat cadence)
+    ba_global_images_ratio_large: float = 1.2
+    ba_global_coarse_cadence_size: int = 500
     ba_refine_focal_length: bool = True
     ba_refine_extra_params: bool = True
     min_model_size: int = 3
@@ -174,10 +179,8 @@ class IncrementalPipeline(BaseController):
             last_snapshot = self._maybe_snapshot(mapper, last_snapshot)
             n_img = len(mapper.registered)
             n_pts = max(mapper.num_points3D(), 1)
-            if (n_img > self.options.ba_global_images_ratio
-                    * last_global_images
-                    or n_pts > self.options.ba_global_points_ratio
-                    * last_global_points):
+            if self._global_ba_due(n_img, n_pts, last_global_images,
+                                   last_global_points):
                 self._global_refinement(mapper)
                 last_global_images = n_img
                 last_global_points = mapper.num_points3D()
@@ -188,6 +191,20 @@ class IncrementalPipeline(BaseController):
         if mapper.rec.num_registered_images() < self.options.min_model_size:
             return None
         return mapper.finalize()
+
+    def _global_ba_due(self, n_img: int, n_pts: int, last_images: int,
+                       last_points: int) -> bool:
+        """Has the model grown enough since the last global refinement?
+        Below `ba_global_coarse_cadence_size` images the images and points
+        ratios apply; from it on both read `ba_global_images_ratio_large`."""
+        opts = self.options
+        large = n_img >= opts.ba_global_coarse_cadence_size
+        img_ratio = (opts.ba_global_images_ratio_large if large
+                     else opts.ba_global_images_ratio)
+        pts_ratio = (opts.ba_global_images_ratio_large if large
+                     else opts.ba_global_points_ratio)
+        return (n_img > img_ratio * last_images
+                or n_pts > pts_ratio * last_points)
 
     def _map_round(self, mapper: IncrementalMapper,
                    exclude_images: Set[int]) -> str:

@@ -21,6 +21,7 @@ from colmap_tpu_torch.estimators.utils import eigh, solve, svd
 from colmap_tpu_torch.geometry import rigid3, rotation as rot
 from colmap_tpu_torch.math.polynomial import find_roots_durand_kerner
 from colmap_tpu_torch.optim.ransac import RansacOptions, ransac
+from colmap_tpu_torch.util import forward_ad
 
 
 def _kabsch(src: torch.Tensor, dst: torch.Tensor, weights=None):
@@ -158,7 +159,8 @@ def gn_refine_pose(pose: torch.Tensor, points3d: torch.Tensor,
     delta0 = torch.zeros(pose.shape[:-1] + (6,), dtype=pose.dtype,
                          device=pose.device)
     for _ in range(num_iters):
-        r, J = _residual_and_jac(delta0, pose, points3d, uv, weights)
+        with forward_ad.lock:
+            r, J = _residual_and_jac(delta0, pose, points3d, uv, weights)
         JtJ = J.transpose(-1, -2) @ J
         Jtr = torch.einsum("bki,bk->bi", J, r)
         H = (JtJ + lm_lambda * torch.diag_embed(

@@ -39,6 +39,7 @@ import torch
 
 from colmap_tpu_torch.geometry import rigid3
 from colmap_tpu_torch.sensor import models as camera_models
+from colmap_tpu_torch.util import forward_ad
 
 
 class BAProblem(NamedTuple):
@@ -112,10 +113,11 @@ def _obs_residual_and_jac(problem: BAProblem, model_id: int,
     z6 = torch.zeros(6, dtype=poses.dtype, device=poses.device)
     z12 = torch.zeros(12, dtype=poses.dtype, device=poses.device)
     z3 = torch.zeros(3, dtype=poses.dtype, device=poses.device)
-    jac = torch.func.vmap(
-        lambda pose, cam, point, xy: torch.func.jacfwd(
-            single, argnums=argnums)(z6, z12, z3, pose, cam, point, xy)
-    )(poses, cams, points, problem.obs_xy)
+    with forward_ad.lock:
+        jac = torch.func.vmap(
+            lambda pose, cam, point, xy: torch.func.jacfwd(
+                single, argnums=argnums)(z6, z12, z3, pose, cam, point, xy)
+        )(poses, cams, points, problem.obs_xy)
     if with_cam:
         Jp, Jc, Jx = jac
     else:

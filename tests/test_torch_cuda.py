@@ -3,7 +3,8 @@ at edge cases and at the VIDEO block's shape, the front end on CUDA
 against the same front end on the CPU, bundle adjustment and batched PnP
 registration on CUDA against the CPU, and the vocab tree's k-means and
 quantiser and sequential matching with loop detection on CUDA against the
-CPU. Every test needs a CUDA device and the CUDA toolkit and skips without
+CPU, the Sim3 pose graph and robust alignment on CUDA against the CPU, and
+the hierarchical mapper on CUDA with three worker threads. Every test needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
 
@@ -18,14 +19,20 @@ from colmap_tpu_torch import bench_ba, bench_matcher
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar
 from colmap_tpu_torch.controllers import feature_extraction as fe
 from colmap_tpu_torch.controllers import feature_matching as fm
+from colmap_tpu_torch.controllers import hierarchical_pipeline as hp
+from colmap_tpu_torch.estimators import alignment as align
 from colmap_tpu_torch.estimators import bundle_adjustment as ba
+from colmap_tpu_torch.estimators import pose_graph as pg
+from colmap_tpu_torch.estimators import similarity_transform as st
 from colmap_tpu_torch.geometry import rigid3, rotation as rot
+from colmap_tpu_torch.geometry import sim3 as s3
 from colmap_tpu_torch.features import hopper_matcher as hm
 from colmap_tpu_torch.features import matching as tm
 from colmap_tpu_torch.features import pairing
 from colmap_tpu_torch.features import sift as sift_mod
 from colmap_tpu_torch.retrieval import kmeans as km
 from colmap_tpu_torch.retrieval import visual_index as vi_mod
+from colmap_tpu_torch.scene import synthetic as tsyn
 from colmap_tpu_torch.scene import synthetic_images as synth
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.sfm.incremental_mapper import _pnp_ransac_batch
@@ -284,3 +291,84 @@ def test_match_sequential_with_loop_detection_cuda_matches_cpu(cuda,
         db.close()
     assert found[cuda][:2] == found["cpu"][:2]
     assert found[cuda][2] == found["cpu"][2]
+
+
+def _sim3_ring(n=6, seed=0):
+    """A noisy Sim3 ring and its chained initialization (the pose-graph
+    case of tests/test_hierarchical.py, drawn with the port's functions)."""
+    rng = np.random.default_rng(seed)
+    gt = [torch.tensor([1.0, 1, 0, 0, 0, 0, 0, 0])]
+    for _ in range(1, n):
+        q = rot.quat_from_axis_angle(torch.as_tensor(
+            rng.normal(0, 0.3, 3), dtype=torch.float32))
+        gt.append(torch.cat([torch.tensor([np.exp(rng.normal(0, 0.1))],
+                                          dtype=torch.float32), q,
+                             torch.as_tensor(rng.normal(0, 1.0, 3),
+                                             dtype=torch.float32)]))
+    edges = np.array([(k, (k + 1) % n) for k in range(n)])
+    meas = []
+    for i, j in edges:
+        m = s3.compose(s3.inverse(gt[j]), gt[i])
+        d = s3.make(torch.tensor(np.exp(rng.normal(0, 0.01)),
+                                 dtype=torch.float32),
+                    rot.quat_from_axis_angle(torch.as_tensor(
+                        rng.normal(0, 0.01, 3), dtype=torch.float32)),
+                    torch.as_tensor(rng.normal(0, 0.01, 3),
+                                    dtype=torch.float32))
+        meas.append(s3.compose(m, d))
+    init = [gt[0]]
+    for k in range(1, n):
+        init.append(s3.compose(init[k - 1], s3.inverse(meas[k - 1])))
+    return (torch.stack(init).numpy(), edges, torch.stack(meas).numpy())
+
+
+def test_pose_graph_cuda_matches_cpu(cuda):
+    init, edges, meas = _sim3_ring()
+    out = {dev: pg.optimize_sim3_pose_graph(init, edges, meas, device=dev)
+           for dev in ("cpu", cuda)}
+    np.testing.assert_allclose(out[cuda], out["cpu"], atol=1e-4)
+    assert not np.allclose(out["cpu"], init, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def hier_fixture():
+    """tests/test_hierarchical.py's 12-image synthetic fixture."""
+    db = Database(":memory:")
+    gt = tsyn.synthesize_dataset(tsyn.SyntheticDatasetOptions(
+        num_cameras=1, num_images=12, num_points3D=220, point2D_stddev=0.4,
+        seed=11), db)
+    return db, gt
+
+
+def test_align_robust_cuda_matches_cpu(cuda, hier_fixture):
+    import copy
+
+    _, gt = hier_fixture
+    ids = sorted(gt.registered_image_ids())
+    rec1, rec2 = copy.deepcopy(gt), copy.deepcopy(gt)
+    for iid in ids[8:]:
+        rec1.images[iid].cam_from_world = None
+    for iid in ids[:4]:
+        rec2.images[iid].cam_from_world = None
+    t = np.array([2.0, 0.3, -0.4, 0.5, 0.7071, 1.0, -2.0, 3.0])
+    t[1:5] /= np.linalg.norm(t[1:5])
+    rec2.transform(t)
+    rec2.images[ids[5]].cam_from_world[4:7] += 3.0  # an outlier centre
+    out = {dev: align.align_reconstructions_robust(rec2, rec1, device=dev)
+           for dev in ("cpu", cuda)}
+    np.testing.assert_allclose(out[cuda], out["cpu"], atol=1e-5)
+    assert abs(out[cuda][0] - 0.5) < 1e-3
+
+
+def test_hierarchical_pipeline_cuda(cuda, hier_fixture):
+    db, gt = hier_fixture
+    opts = hp.HierarchicalPipelineOptions(num_workers=3)
+    opts.clustering.leaf_max_num_images = 5
+    opts.clustering.image_overlap = 2
+    pipe = hp.HierarchicalPipeline(db, opts, device=cuda)
+    rec = pipe.run(seed=1)
+    assert len(pipe.clusters) > 1
+    assert rec is not None and rec.num_registered_images() >= 10
+    cmp = st.compare_reconstructions(rec, gt, device=cuda)
+    assert cmp["max_rotation_error_deg"] < 1.0, cmp
+    assert cmp["max_center_error"] < 0.05, cmp

@@ -182,8 +182,9 @@ def test_unported_paths_raise(tmp_path):
 
 def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
     """The port runs the VIDEO path pixels to model (sequential pairing,
-    vocab-tree loop detection) and imports the retrieval, pairing and GPS
-    modules without importing jax or colmap_tpu."""
+    vocab-tree loop detection), imports the retrieval, pairing, GPS and
+    hierarchical-mapping modules and clusters a synthetic database without
+    importing jax or colmap_tpu."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -195,6 +196,20 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
         from colmap_tpu_torch.geometry import gps
         from colmap_tpu_torch.retrieval import (kmeans, visual_index,
                                                 vote_and_verify)
+        from colmap_tpu_torch.controllers import hierarchical_pipeline
+        from colmap_tpu_torch.estimators import alignment, pose_graph
+        from colmap_tpu_torch.scene import scene_clustering, synthetic
+        from colmap_tpu_torch.scene.database import Database
+        sdb = Database(":memory:")
+        synthetic.synthesize_dataset(synthetic.SyntheticDatasetOptions(
+            num_images=6, num_points3D=60, match_config=2,
+            match_overlap=2), sdb)
+        tree = scene_clustering.cluster_scene(
+            sorted(sdb.read_images()),
+            scene_clustering.edge_weights_from_database(sdb),
+            scene_clustering.SceneClusteringOptions(
+                leaf_max_num_images=3, image_overlap=1))
+        assert len(tree.leaves()) == 2
         o = synth.RoomDatasetOptions(num_images=3, width=320, height=240,
                                      focal=280.0, seed=5)
         images, K, _, _ = synth.render_room_dataset(o)

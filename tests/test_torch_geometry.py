@@ -270,10 +270,16 @@ def test_camera_models(name, params):
 
 
 def test_unported_camera_model_raises():
-    p = torch.zeros(12)
-    with pytest.raises(NotImplementedError):
-        tmodels.cam_from_img(int(tmodels.CameraModelId.FOV), p,
-                             torch.zeros(3, 2))
+    """No camera model raises any more: all 12 map pixels to rays and back
+    (their parity with JAX is in tests/test_torch_hierarchical.py)."""
+    xy = torch.tensor([[10.0, 20.0], [160.0, 120.0], [300.0, 200.0]])
+    for mid in tmodels.CameraModelId:
+        p = torch.as_tensor(tmodels.default_params(int(mid), 300.0, 320, 240))
+        uv = tmodels.cam_from_img(int(mid), p, xy)
+        assert torch.isfinite(uv).all(), mid.name
+        np.testing.assert_allclose(
+            tmodels.img_from_cam(int(mid), p, uv).numpy(), xy.numpy(),
+            atol=1e-3)
 
 
 def test_polynomial_roots():
