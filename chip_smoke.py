@@ -1,8 +1,9 @@
-"""Drive the PyTorch / CUDA port from pixels to a sparse model on one GPU.
+"""Drive the PyTorch / CUDA port from pixels to a sparse model and to a
+dense mesh on one GPU.
 
     python3 chip_smoke.py
 
-Runs colmap_tpu_torch (never jax or colmap_tpu) on three cells. The DSLR
+Runs colmap_tpu_torch (never jax or colmap_tpu) on four cells. The DSLR
 cell is the repo's DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH
 (8192 features), one PINHOLE camera, exhaustive pairing (190 pairs in one
 block), then the incremental mapper. The VIDEO cell is the JAX package's
@@ -17,7 +18,13 @@ scripts/hierarchical_timing.py) at full size: a synthetic match database
 of 200 images on a circle (SIMPLE_RADIAL 1024x768, 4000 points each seen
 by its 40 nearest cameras, 0.5 px noise, chained matches of overlap 10,
 seed 3) mapped by the hierarchical mapper in leaves of 60 images with 50
-overlap images on 4 worker threads. Phases:
+overlap images on one worker thread (the faster setting on the card: 4
+threads queue on the forward-mode autodiff lock, PERF.md section 5; the
+card tests run the pipeline with 3). The dense cell is the JAX bench's
+PatchMatch resolution (bench.py:236) end to end: 12 rendered 640x480 room
+images (focal 560, seed 11), Quality.HIGH, one SIMPLE_RADIAL camera, then
+undistortion, PatchMatch stereo (photometric, then geometric), fusion and
+Poisson meshing with the JAX package's defaults. Phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the matcher kernel (csrc/matcher_top2.cu) with nvcc;
@@ -71,11 +78,25 @@ overlap images on 4 worker threads. Phases:
    least 190 of 200 images registered and, after a Sim3 alignment to the
    ground truth, every rotation within 1 deg and every centre within 0.05.
    A cluster that raises fails the phase.
+9. dense: run_automatic_reconstruction(sparse=True, dense=True) on cuda,
+   the launch counter zeroed just before and read just after (K1 runs in
+   its sparse stage); prints the sparse stages, the seconds of
+   undistortion, both PatchMatch passes, fusion and meshing, PatchMatch
+   seconds per map and Mpix/s per pass and the peak device memory. Held,
+   in the render's frame after a Sim3 alignment of the model: all 12
+   images registered within 1 deg / 0.05 x room size; every image has a
+   geometric depth and normal map with >= 40% of its pixels estimated,
+   whose back-projected points lie a median < 0.03 x room size from the
+   room's three faces; fused.ply >= 10,000 points, >= 70% within 0.05 x
+   room size of a face; meshed-poisson.ply > 500 vertices and faces with a
+   median vertex distance < 0.08 x room size (tests/test_mvs.py:122-169).
 
 The second-to-last line is the kernel report, one JSON object: its ms,
 plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
 `launches` the DSLR path's count; `shapes` holds all three shapes and
-`launches_by_path` every path's count. The last line is {"ok": true,
+`launches_by_path` every path's count (the dense cell's is its sparse
+stage's: PatchMatch, fusion and meshing are torch ops with no TPU kernel
+behind them). The last line is {"ok": true,
 "device": {...}}. Any failed check exits nonzero.
 """
 
@@ -104,6 +125,8 @@ from colmap_tpu_torch.estimators.similarity_transform import (  # noqa: E402
 from colmap_tpu_torch.features import hopper_matcher as hm  # noqa: E402
 from colmap_tpu_torch.features import pairing  # noqa: E402
 from colmap_tpu_torch.geometry import rotation as rot  # noqa: E402
+from colmap_tpu_torch.geometry import sim3  # noqa: E402
+from colmap_tpu_torch.mvs import depth_map, fusion  # noqa: E402
 from colmap_tpu_torch.geometry.essential import (  # noqa: E402
     pose_from_essential_matrix)
 from colmap_tpu_torch.scene import reconstruction_io  # noqa: E402
@@ -114,6 +137,7 @@ from colmap_tpu_torch.sensor import models as cam_models  # noqa: E402
 
 
 VIDEO_FRAMES = 100  # the JAX package's run has 1000; cut to fit the limit
+DENSE_IMAGES = 12
 
 
 def fail(msg):
@@ -126,6 +150,7 @@ def phase(msg):
 
 
 def main():
+    t_start = time.perf_counter()
     # ---- 1. device
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script runs only on a GPU")
@@ -215,6 +240,11 @@ def main():
     # ---- 8. the hierarchical cell
     hierarchical_path(report)
 
+    # ---- 9. the dense cell
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_") as work:
+        dense_path(work, report)
+
+    phase(f"[smoke] {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [report]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -380,7 +410,7 @@ def hierarchical_path(report):
           f"{db.num_verified_pairs()} verified pairs in "
           f"{time.perf_counter() - t0:.3f} s")
     hm.launches = 0
-    run, rec = bench_hierarchical.run_once(db, gt, num_workers=4,
+    run, rec = bench_hierarchical.run_once(db, gt, num_workers=1,
                                            leaf_max_images=60, device="cuda")
     report["launches_by_path"]["hierarchical"] = hm.launches
     tm = run["timings"]
@@ -390,7 +420,7 @@ def hierarchical_path(report):
         phase(f"[hier] cluster {k}: {c['registered']}/{c['images']} "
               f"registered in {c['seconds']:.3f} s; autodiff lock waited "
               f"{c['ad_lock_wait_s']:.3f} s, held {c['ad_lock_held_s']:.3f} s")
-    phase(f"[hier] mapping (4 workers) {tm['mapping']:.3f} s; merge: "
+    phase(f"[hier] mapping (1 worker) {tm['mapping']:.3f} s; merge: "
           f"alignment {tm['align']:.3f} s, pose graph "
           f"{tm['pose_graph']:.3f} s, fusion {tm['fuse']:.3f} s; wall "
           f"{run['wall_s']:.3f} s")
@@ -409,6 +439,136 @@ def hierarchical_path(report):
           f"matcher kernel launches {hm.launches} (not on this path)")
     check_model("hierarchical model", rec, gt, 200, 190, 0.05)
     db.close()
+
+
+def dense_path(work, report):
+    """Phase 9 in the scratch directory `work`: the dense cell, pixels to
+    a fused cloud and a Poisson mesh."""
+    t0 = time.perf_counter()
+    ropts = synth.RoomDatasetOptions(num_images=DENSE_IMAGES, width=640,
+                                     height=480, focal=560.0, seed=11)
+    images, K, Rs, ts = synth.render_room_dataset(ropts)
+    names = synth.write_dataset(os.path.join(work, "images"), images)
+    phase(f"[render] {DENSE_IMAGES} x 640x480 room in "
+          f"{time.perf_counter() - t0:.3f} s")
+    opts = ar.AutomaticReconstructionOptions(
+        workspace_path=os.path.join(work, "ws"),
+        image_path=os.path.join(work, "images"), quality=ar.Quality.HIGH,
+        camera_model="SIMPLE_RADIAL", single_camera=True, sparse=True,
+        dense=True,
+        camera_params=",".join(map(str, [K[0, 0], K[0, 2], K[1, 2], 0.0])))
+    rec, db, st, launches = drive("dense", opts)
+    report["launches_by_path"]["dense"] = launches
+    n_maps = st["patch_match_maps"]
+    ids = {im["name"]: iid for iid, im in db.read_images().items()}
+    dense_dir = os.path.join(opts.workspace_path, "dense")
+    ucam = next(iter(reconstruction_io.read_model(
+        os.path.join(dense_dir, "sparse")).cameras.values()))
+    mpix = ucam.width * ucam.height / 1e6
+    phase(f"[dense] stages s: undistortion {st['undistortion']:.3f}, "
+          f"patch_match_photometric {st['patch_match_photometric']:.3f}, "
+          f"patch_match_geometric {st['patch_match_geometric']:.3f}, "
+          f"fusion {st['fusion']:.3f}, meshing {st['meshing']:.3f}")
+    for kind in ("photometric", "geometric"):
+        sec = st[f"patch_match_{kind}"]
+        phase(f"[dense] PatchMatch {kind}: {n_maps} maps of "
+              f"{ucam.width}x{ucam.height}, {sec / n_maps:.4f} s per map, "
+              f"{n_maps * mpix / sec:.4f} Mpix/s")
+    phase(f"[dense] matcher kernel launches {launches} (the sparse stage)")
+    if launches < 1:
+        fail("the dense cell's sparse stage did not launch the matcher "
+             "kernel")
+
+    gt = gt_model(ids, names, K, Rs, ts, 640, 480)
+    check_model("dense cell's sparse model", rec, gt, len(names), len(names),
+                0.05 * ropts.room_size)
+    check_dense(rec, gt, dense_dir, ropts.room_size)
+    db.close()
+
+
+def check_dense(rec, gt, dense_dir, s, device="cuda"):
+    """The dense cell's gates in the render's frame (the model aligned to
+    the ground truth `gt` by Sim3): every registered image has geometric
+    depth and normal maps with >= 40% of the pixels estimated, whose
+    back-projected points lie within a median 0.03 x room size `s` of the
+    room's faces; fused.ply has >= 10,000 points, >= 70% within 0.05 s;
+    meshed-poisson.ply has > 500 vertices and faces, median vertex
+    distance < 0.08 s (tests/test_mvs.py:122-169)."""
+    urec = reconstruction_io.read_model(os.path.join(dense_dir, "sparse"))
+    to_gt = torch.as_tensor(compare_reconstructions(rec, gt,
+                                                    device=device)["sim3"])
+
+    def face_distance(xyz):
+        """Distance of model-frame points to the nearest room face."""
+        p = sim3.apply(to_gt, torch.as_tensor(np.asarray(xyz, np.float64)))
+        p = p.numpy()
+        return np.minimum(np.minimum(np.abs(p[:, 2] - s), np.abs(p[:, 0] - s)),
+                          np.abs(p[:, 1] - s / 2))
+
+    # depth and normal maps of every registered image, back-projected
+    points = []
+    shares = []
+    for iid in rec.registered_image_ids():
+        im = urec.images[iid]
+        paths = [os.path.join(dense_dir, "stereo", kind,
+                              f"{im.name}.geometric.bin")
+                 for kind in ("depth_maps", "normal_maps")]
+        if not all(os.path.exists(p) for p in paths):
+            fail(f"{im.name}: no geometric depth or normal map")
+        depth = depth_map.DepthMap.read(paths[0]).data
+        normal = depth_map.NormalMap.read(paths[1]).data
+        if normal.shape != depth.shape + (3,):
+            fail(f"{im.name}: normal map {normal.shape} for depth map "
+                 f"{depth.shape}")
+        shares.append(float((depth > 0).mean()))
+        ys, xs = np.nonzero(depth > 0)
+        fx, fy, cx, cy = urec.cameras[im.camera_id].params[:4]
+        d = depth[ys, xs].astype(np.float64)
+        Xc = np.stack([(xs + 0.5 - cx) / fx * d, (ys + 0.5 - cy) / fy * d, d],
+                      -1)
+        q = torch.as_tensor(im.cam_from_world[:4])
+        R = rot.quat_to_rotmat(q / torch.linalg.vector_norm(q)).numpy()
+        points.append((Xc - im.cam_from_world[4:7]) @ R)
+    dist = face_distance(np.concatenate(points))
+    phase(f"[dense] estimated share per depth map: min {min(shares):.4f}, "
+          f"max {max(shares):.4f}; depth points' median distance to the "
+          f"room {np.median(dist):.5f} (limit {0.03 * s:.3f})")
+    if min(shares) < 0.4:
+        fail(f"a depth map has only {min(shares):.4f} of its pixels")
+    if not np.median(dist) < 0.03 * s:
+        fail("the depth maps are not on the room's faces")
+
+    cloud = fusion.read_ply(os.path.join(dense_dir, "fused.ply"))
+    near = float((face_distance(cloud["xyz"]) < 0.05 * s).mean())
+    phase(f"[dense] fused.ply: {len(cloud['xyz'])} points, {near:.4f} within "
+          f"{0.05 * s:.3f} of a face")
+    if len(cloud["xyz"]) < 10_000 or near < 0.7:
+        fail("the fused cloud is too small or off the room's faces")
+
+    verts, faces = read_mesh_ply(os.path.join(dense_dir, "meshed-poisson.ply"))
+    med = float(np.median(face_distance(verts)))
+    phase(f"[dense] meshed-poisson.ply: {len(verts)} vertices, {len(faces)} "
+          f"faces, median vertex distance {med:.5f} (limit {0.08 * s:.3f})")
+    if len(verts) <= 500 or len(faces) <= 500 or not med < 0.08 * s:
+        fail("the Poisson mesh is too small or off the room's faces")
+
+
+def read_mesh_ply(path):
+    """(vertices [N, 3], faces [M, 3]) of a binary triangle-mesh PLY as
+    mvs.meshing.write_mesh_ply writes it."""
+    with open(path, "rb") as f:
+        counts = {}
+        while True:
+            line = f.readline().decode().strip()
+            if line.startswith("element"):
+                counts[line.split()[1]] = int(line.split()[2])
+            if line == "end_header":
+                break
+        verts = np.frombuffer(f.read(12 * counts["vertex"]), "<f4").reshape(
+            -1, 3)
+        rec = np.frombuffer(f.read(), dtype=[("n", "u1"), ("v", "<i4", 3)],
+                            count=counts["face"])
+    return verts, rec["v"]
 
 
 def drive(tag, opts):

@@ -115,7 +115,8 @@ def time_solves(problem, options, reps: int):
 def top_device_ops(fn, k: int = 5):
     """Profile one call of fn under torch.profiler. Returns ([(kernel name,
     device ms, launches)] of the k kernels with the most device time, the
-    device ms of all kernels, the call's wall ms)."""
+    device ms of all kernels, the call's wall ms, the number of kernel
+    launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -138,7 +139,7 @@ def top_device_ops(fn, k: int = 5):
     kernels.sort(key=lambda e: -dev_us(e))
     total = sum(dev_us(e) for e in kernels) / 1e3
     return ([(e.key, dev_us(e) / 1e3, e.count) for e in kernels[:k]], total,
-            wall_ms)
+            wall_ms, sum(e.count for e in kernels))
 
 
 def run(num_poses=500, num_points=50_000, obs_per_point=6, seed=7, reps=3,
@@ -151,7 +152,8 @@ def run(num_poses=500, num_points=50_000, obs_per_point=6, seed=7, reps=3,
                            refine_intrinsics=False)
     cost0 = float(ba.compute_cost(problem, options))
     secs, state = time_solves(problem, options, reps)
-    ops, dev_ms, wall_ms = top_device_ops(lambda: ba.solve(problem, options))
+    ops, dev_ms, wall_ms, _ = top_device_ops(
+        lambda: ba.solve(problem, options))
     best = min(secs)
     return dict(
         poses=num_poses, points=num_points,

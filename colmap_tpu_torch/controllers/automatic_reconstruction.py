@@ -1,22 +1,29 @@
-"""One-click reconstruction: images dir -> database -> sparse model.
+"""One-click reconstruction: images dir -> database -> sparse model ->
+dense cloud and mesh.
 
 Port of colmap_tpu/controllers/automatic_reconstruction.py: feature
 extraction, matching (exhaustive, or for VIDEO sequential with vocab-tree
 loop detection) and, with `sparse=True`, the incremental mapper, whose
-model is written to workspace/sparse/0 in the binary format. The quality
-presets are the JAX package's. Dense reconstruction is not ported yet and
-raises NotImplementedError.
+model is written to workspace/sparse/0 in the binary format; with
+`dense=True` as well, undistortion into workspace/dense, PatchMatch stereo
+(photometric, then geometric), fusion into dense/fused.ply and Poisson
+meshing into dense/meshed-poisson.ply, with the JAX package's defaults. The
+quality presets are the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import gc
 import logging
 import os
 import time
 from typing import Optional
 
+import torch
+
+from colmap_tpu_torch.controllers import dense_reconstruction as dense
 from colmap_tpu_torch.controllers import feature_extraction as fe
 from colmap_tpu_torch.controllers import feature_matching as fm
 from colmap_tpu_torch.controllers.incremental_pipeline import (
@@ -25,6 +32,7 @@ from colmap_tpu_torch.controllers.incremental_pipeline import (
 )
 from colmap_tpu_torch.features import pairing as pairing_mod
 from colmap_tpu_torch.features import sift as sift_mod
+from colmap_tpu_torch.image import undistortion as und
 from colmap_tpu_torch.scene import reconstruction_io
 from colmap_tpu_torch.scene.database import Database
 
@@ -83,7 +91,8 @@ def run_automatic_reconstruction(
     device="cuda",
 ):
     """Extraction + matching on `device` into workspace/database.db, then,
-    with `options.sparse`, incremental mapping into workspace/sparse/0.
+    with `options.sparse`, incremental mapping into workspace/sparse/0,
+    and with `options.dense` too the dense stages into workspace/dense.
     INDIVIDUAL and INTERNET data are matched exhaustively; VIDEO frames
     sequentially in name order (window `video_overlap`) with vocab-tree
     loop detection. Returns (reconstruction | None, database).
@@ -93,10 +102,10 @@ def run_automatic_reconstruction(
     (MatchingStats) under "matching_stats", the pipeline's per-stage
     seconds under "mapping_stages" and its BA sub-timers and counters
     (calls, LM iterations, CG steps, host synchronizations) under
-    "mapping_ba"."""
-    if options.dense:
-        raise NotImplementedError("dense reconstruction: ROADMAP queue 1 "
-                                  "item 9")
+    "mapping_ba"; when the dense stages ran, the seconds of
+    "undistortion", "patch_match_photometric", "patch_match_geometric",
+    "fusion" and "meshing" and the depth maps per pass
+    ("patch_match_maps")."""
     os.makedirs(options.workspace_path, exist_ok=True)
     database = Database(os.path.join(options.workspace_path, "database.db"))
     reader = fe.ImageReaderOptions(
@@ -145,4 +154,44 @@ def run_automatic_reconstruction(
             stage_timings["mapping_stages"] = dict(sorted(
                 pipeline.stage_s.items(), key=lambda kv: -kv[1]))
             stage_timings["mapping_ba"] = dict(pipeline.ba_stats)
+        del pipeline  # its device caches go before the dense stage
+
+    if options.dense and rec is not None:
+        logger.info("=== dense reconstruction ===")
+        timings = run_dense(rec, options, device, seed)
+        if stage_timings is not None:
+            stage_timings.update(timings)
     return rec, database
+
+
+def run_dense(rec, options: AutomaticReconstructionOptions, device,
+              seed: int = 0) -> dict:
+    """The dense stages of the JAX package, in its order and with its
+    defaults: undistort into workspace/dense, PatchMatch stereo
+    (photometric, then geometric), fusion into fused.ply, Poisson meshing
+    into meshed-poisson.ply. Returns the stage seconds."""
+    # the sparse stage's freed blocks go back to the card before the
+    # memory-heavy dense stage
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    dense_dir = os.path.join(options.workspace_path, "dense")
+    t = {}
+    t0 = time.perf_counter()
+    und.run_undistorter(rec, options.image_path, dense_dir, device=device)
+    t["undistortion"] = time.perf_counter() - t0
+    pm_t = {}
+    dense.run_patch_match_stereo(dense_dir, seed=seed, device=device,
+                                 timings=pm_t)
+    t["patch_match_photometric"] = pm_t["photometric"]
+    t["patch_match_geometric"] = pm_t["geometric"]
+    t["patch_match_maps"] = pm_t["maps"]
+    t0 = time.perf_counter()
+    dense.run_stereo_fusion(dense_dir, device=device)
+    t["fusion"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense.run_poisson_mesher(os.path.join(dense_dir, "fused.ply"),
+                             os.path.join(dense_dir, "meshed-poisson.ply"),
+                             device=device)
+    t["meshing"] = time.perf_counter() - t0
+    return t

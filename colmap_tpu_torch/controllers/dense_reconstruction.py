@@ -1,0 +1,233 @@
+"""Dense MVS controllers: patch-match stereo, fusion, meshing over a
+COLMAP-layout workspace.
+
+Port of colmap_tpu/controllers/dense_reconstruction.py (reference entry
+points: RunPatchMatchStereo exe/mvs.cc:78, RunStereoFuser :136,
+RunPoissonMesher :120, RunDelaunayMesher :41). Per-reference problems with
+'__auto__' source selection run one after another on `device`. Workspace
+layout (doc/format.rst:160-188):
+
+    workspace/
+      images/               undistorted images
+      sparse/               undistorted PINHOLE model
+      stereo/depth_maps/<image>.{photometric,geometric}.bin
+      stereo/normal_maps/<image>.{photometric,geometric}.bin
+      stereo/consistency_graphs/<image>.<input_type>.bin
+      fused.ply
+      meshed-poisson.ply
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from PIL import Image as PILImage
+
+from colmap_tpu_torch.mvs import depth_map as dm
+from colmap_tpu_torch.mvs import fusion as fusion_mod
+from colmap_tpu_torch.mvs import meshing as meshing_mod
+from colmap_tpu_torch.mvs import model as model_mod
+from colmap_tpu_torch.mvs import patch_match as pm
+from colmap_tpu_torch.scene import reconstruction_io
+from colmap_tpu_torch.sensor import bitmap as bitmap_mod
+
+logger = logging.getLogger("colmap_tpu_torch")
+
+
+@dataclasses.dataclass
+class PatchMatchStereoOptions:
+    patch_match: pm.PatchMatchOptions = dataclasses.field(
+        default_factory=pm.PatchMatchOptions)
+    max_num_src_images: int = 8
+    geom_consistency: bool = True  # second pass like the reference default
+    max_image_size: int = -1
+    # the JAX package spreads problems over local devices; the port runs
+    # on one card (ROADMAP queue 1 item 11)
+    num_devices: int = 1
+
+
+def _load_workspace(workspace_path: str, max_image_size: int = -1):
+    """(MVS model, images by id) of the undistorted workspace, optionally
+    downscaled to max_image_size (reference: Workspace options
+    max_image_size, mvs/workspace.h: stereo runs at the reduced
+    resolution, with the calibration scaled to match)."""
+    model = model_mod.build_model(
+        reconstruction_io.read_model(os.path.join(workspace_path, "sparse")))
+    images = {}
+    for iid, im in model.images.items():
+        path = os.path.join(workspace_path, "images", im.name)
+        data = bitmap_mod.read_bitmap(path).data
+        if max_image_size > 0 and max(data.shape[:2]) > max_image_size:
+            s = max_image_size / max(data.shape[:2])
+            nh = max(int(round(data.shape[0] * s)), 1)
+            nw = max(int(round(data.shape[1] * s)), 1)
+            data = np.asarray(PILImage.fromarray(
+                (data * 255).astype(np.uint8)).resize(
+                    (nw, nh), PILImage.BILINEAR), np.float32) / 255.0
+            # continuous pixel coords scale exactly: K' = diag(sx, sy, 1) K
+            sy, sx = nh / im.height, nw / im.width
+            im.K = np.diag([sx, sy, 1.0]) @ im.K
+            im.width, im.height = nw, nh
+        images[iid] = data
+    return model, images
+
+
+def _suffix_path(workspace_path: str, kind: str, name: str, suffix: str) -> str:
+    return os.path.join(workspace_path, "stereo", kind, f"{name}.{suffix}.bin")
+
+
+def run_patch_match_stereo(workspace_path: str,
+                           options: PatchMatchStereoOptions = PatchMatchStereoOptions(),
+                           seed: int = 0, device="cuda",
+                           timings: Optional[dict] = None
+                           ) -> Dict[int, np.ndarray]:
+    """Compute photometric (+ geometric) depth/normal maps for all images.
+
+    The draws come from one torch.Generator on `device` seeded with
+    `seed`. `timings`, when a dict, gets the wall seconds of each pass
+    ("photometric", "geometric") and the number of maps per pass
+    ("maps")."""
+    if options.num_devices != 1:
+        raise NotImplementedError("multi-device PatchMatch: ROADMAP queue 1 "
+                                  "item 11")
+    model, images = _load_workspace(workspace_path, options.max_image_size)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device)
+
+    def solve_all(geom: bool, prior: Dict[int, np.ndarray]):
+        depths, normals = {}, {}
+        po = dataclasses.replace(options.patch_match, geom_consistency=geom)
+        for ref_id, im in sorted(model.images.items()):
+            srcs = model.src_images(ref_id, options.max_num_src_images)
+            if not srcs:
+                logger.warning("image %d has no source images", ref_id)
+                continue
+            dmin, dmax = model.depth_ranges[ref_id]
+            R_ref, t_ref = im.R, im.t
+            R_rel = np.stack([model.images[s].R @ R_ref.T for s in srcs])
+            t_rel = np.stack([model.images[s].t - R_rel[i] @ t_ref
+                              for i, s in enumerate(srcs)])
+            src_depths = None
+            if geom:
+                src_depths = put(np.stack(
+                    [prior.get(s, np.zeros_like(images[s])) for s in srcs]))
+            problem = pm.PatchMatchProblem(
+                ref_image=put(images[ref_id]),
+                src_images=put(np.stack([images[s] for s in srcs])),
+                K_ref=put(im.K),
+                K_src=put(np.stack([model.images[s].K for s in srcs])),
+                R_rel=put(R_rel),
+                t_rel=put(t_rel),
+                depth_min=put(np.float32(dmin)),
+                depth_max=put(np.float32(dmax)),
+                src_depths=src_depths,
+            )
+            draws = pm.GeneratorDraws(generator, images[ref_id].shape)
+            depth, normal, _ = pm.patch_match(draws, problem, po)
+            depths[ref_id] = depth.cpu().numpy()
+            normals[ref_id] = normal.cpu().numpy()
+            logger.info("patch-match %s (%s): %.0f%% estimated",
+                        im.name, "geom" if geom else "photo",
+                        100.0 * float((depths[ref_id] > 0).mean()))
+        return depths, normals
+
+    t0 = time.perf_counter()
+    depths, normals = solve_all(False, {})
+    t1 = time.perf_counter()
+    if timings is not None:
+        timings["photometric"] = t1 - t0
+        timings["maps"] = len(depths)
+    if options.geom_consistency:
+        depths, normals = solve_all(True, depths)
+        if timings is not None:
+            timings["geometric"] = time.perf_counter() - t1
+
+    suffix = "geometric" if options.geom_consistency else "photometric"
+    for ref_id, im in model.images.items():
+        if ref_id not in depths:
+            continue
+        dm.DepthMap(depths[ref_id]).write(
+            _suffix_path(workspace_path, "depth_maps", im.name, suffix))
+        dm.NormalMap(normals[ref_id]).write(
+            _suffix_path(workspace_path, "normal_maps", im.name, suffix))
+    return depths
+
+
+def run_stereo_fusion(workspace_path: str,
+                      options: fusion_mod.StereoFusionOptions = fusion_mod.StereoFusionOptions(),
+                      input_type: str = "geometric",
+                      output_path: Optional[str] = None,
+                      max_image_size: int = -1,
+                      device="cuda") -> Dict[str, np.ndarray]:
+    """Fuse depth/normal maps into fused.ply (reference: RunStereoFuser).
+
+    max_image_size must match the stereo run so the scaled calibration
+    lines up with the stored depth-map resolution."""
+    model, images = _load_workspace(workspace_path, max_image_size)
+    depths, normals = {}, {}
+    for iid, im in model.images.items():
+        p = _suffix_path(workspace_path, "depth_maps", im.name, input_type)
+        if not os.path.exists(p):
+            p = _suffix_path(workspace_path, "depth_maps", im.name, "photometric")
+        if not os.path.exists(p):
+            continue
+        depths[iid] = dm.DepthMap.read(p).data
+        normals[iid] = dm.NormalMap.read(
+            p.replace("depth_maps", "normal_maps")).data
+    graphs: Dict[int, fusion_mod.ConsistencyGraph] = {}
+    cloud = fusion_mod.fuse(model, depths, normals, images, options,
+                            consistency_out=graphs, device=device)
+    cg_dir = os.path.join(workspace_path, "stereo", "consistency_graphs")
+    os.makedirs(cg_dir, exist_ok=True)
+    for iid, g in graphs.items():
+        name = model.images[iid].name
+        os.makedirs(os.path.dirname(os.path.join(cg_dir, name)) or cg_dir,
+                    exist_ok=True)
+        g.write(os.path.join(cg_dir, f"{name}.{input_type}.bin"))
+    out = output_path or os.path.join(workspace_path, "fused.ply")
+    fusion_mod.write_ply(out, cloud["xyz"], cloud["normal"], cloud["color"])
+    logger.info("fused %d points -> %s", len(cloud["xyz"]), out)
+    return cloud
+
+
+def run_poisson_mesher(input_ply: str, output_ply: str,
+                       options: meshing_mod.PoissonMeshingOptions = meshing_mod.PoissonMeshingOptions(),
+                       device="cuda"):
+    """reference: RunPoissonMesher (exe/mvs.cc:120)."""
+    cloud = fusion_mod.read_ply(input_ply)
+    verts, faces = meshing_mod.poisson_mesh(
+        cloud["xyz"], cloud.get("normal", np.zeros_like(cloud["xyz"])),
+        options, device=device)
+    meshing_mod.write_mesh_ply(output_ply, verts, faces)
+    logger.info("meshed %d vertices / %d faces -> %s",
+                len(verts), len(faces), output_ply)
+    return verts, faces
+
+
+def run_delaunay_mesher(workspace_path: str, output_ply: str,
+                        input_ply: Optional[str] = None):
+    """reference: RunDelaunayMesher (exe/mvs.cc:41), dense variant; host
+    scipy."""
+    cloud = fusion_mod.read_ply(
+        input_ply or os.path.join(workspace_path, "fused.ply"))
+    rec = reconstruction_io.read_model(os.path.join(workspace_path, "sparse"))
+    model = model_mod.build_model(rec)
+    centers = np.stack([im.center() for im in model.images.values()])
+    # subsample for the tetrahedralization
+    xyz = cloud["xyz"]
+    if len(xyz) > 20000:
+        sel = np.random.default_rng(0).choice(len(xyz), 20000, replace=False)
+        xyz = xyz[sel]
+    verts, faces = meshing_mod.delaunay_mesh(xyz, centers)
+    meshing_mod.write_mesh_ply(output_ply, verts, faces)
+    return verts, faces

@@ -3,8 +3,9 @@ at edge cases and at the VIDEO block's shape, the front end on CUDA
 against the same front end on the CPU, bundle adjustment and batched PnP
 registration on CUDA against the CPU, and the vocab tree's k-means and
 quantiser and sequential matching with loop detection on CUDA against the
-CPU, the Sim3 pose graph and robust alignment on CUDA against the CPU, and
-the hierarchical mapper on CUDA with three worker threads. Every test needs a CUDA device and the CUDA toolkit and skips without
+CPU, the Sim3 pose graph and robust alignment on CUDA against the CPU, the
+hierarchical mapper on CUDA with three worker threads, and PatchMatch,
+fusion, the splat and the cuFFT Poisson solve on CUDA against the CPU. Every test needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
 
@@ -30,11 +31,16 @@ from colmap_tpu_torch.features import hopper_matcher as hm
 from colmap_tpu_torch.features import matching as tm
 from colmap_tpu_torch.features import pairing
 from colmap_tpu_torch.features import sift as sift_mod
+from colmap_tpu_torch.mvs import fusion as fusion_mod
+from colmap_tpu_torch.mvs import meshing
+from colmap_tpu_torch.mvs import model as mvs_model
+from colmap_tpu_torch.mvs import patch_match as pm
 from colmap_tpu_torch.retrieval import kmeans as km
 from colmap_tpu_torch.retrieval import visual_index as vi_mod
 from colmap_tpu_torch.scene import synthetic as tsyn
 from colmap_tpu_torch.scene import synthetic_images as synth
 from colmap_tpu_torch.scene.database import Database
+from colmap_tpu_torch.scene.reconstruction import Camera, Image, Reconstruction
 from colmap_tpu_torch.sfm.incremental_mapper import _pnp_ransac_batch
 
 pytestmark = pytest.mark.cuda
@@ -372,3 +378,106 @@ def test_hierarchical_pipeline_cuda(cuda, hier_fixture):
     cmp = st.compare_reconstructions(rec, gt, device=cuda)
     assert cmp["max_rotation_error_deg"] < 1.0, cmp
     assert cmp["max_center_error"] < 0.05, cmp
+
+
+# -- dense MVS -------------------------------------------------------------------
+
+
+def _pm_room(width=160, height=120, focal=140.0):
+    o = synth.RoomDatasetOptions(num_images=4, width=width, height=height,
+                                 focal=focal, seed=2)
+    return synth.render_room_dataset(o, return_depth=True)
+
+
+def _pm_problem(room, device, ref=1, srcs=(0, 2, 3)):
+    images, K, Rs, ts, depths = room
+    srcs = list(srcs)
+    R_rel = np.stack([Rs[s] @ Rs[ref].T for s in srcs])
+    t_rel = np.stack([ts[s] - R_rel[i] @ ts[ref] for i, s in enumerate(srcs)])
+    gt = depths[ref]
+
+    def put(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device)
+
+    return pm.PatchMatchProblem(
+        ref_image=put(images[ref]) / 255.0,
+        src_images=put(np.stack([images[s] for s in srcs])) / 255.0,
+        K_ref=put(K), K_src=put(np.stack([K] * len(srcs))), R_rel=put(R_rel),
+        t_rel=put(t_rel), depth_min=put(gt[gt > 0].min() * 0.7),
+        depth_max=put(gt[gt > 0].max() * 1.3),
+        src_depths=put(np.stack([depths[s] for s in srcs])))
+
+
+@pytest.mark.parametrize("geom", [False, True])
+def test_patch_match_cuda_matches_cpu(cuda, geom):
+    """The same draws (recorded from a CPU generator) on both devices:
+    >= 99% of the pixels within 1e-3 relative depth, the same filter mask
+    on >= 99%."""
+    room = _pm_room()
+    opts = pm.PatchMatchOptions(num_iterations=3, geom_consistency=geom)
+    g = torch.Generator().manual_seed(0)
+    src = pm.GeneratorDraws(g, (120, 160))
+    initial = src.initial()
+    perts = [src.perturbation()
+             for _ in range(pm.num_perturbation_draws(opts))]
+    out = {}
+    for dev in ("cpu", cuda):
+        d, n, c = pm.patch_match(pm.RecordedDraws(initial, perts),
+                                 _pm_problem(room, dev), opts)
+        out[dev] = d.cpu().numpy()
+    ref, got = out["cpu"], out[cuda]
+    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-6)
+    assert (rel <= 1e-3).mean() >= 0.99, (rel <= 1e-3).mean()
+    assert ((got > 0) == (ref > 0)).mean() >= 0.99
+    assert (ref > 0).mean() > 0.4
+
+
+def test_fusion_and_poisson_cuda_match_cpu(cuda):
+    """Fusion of the rendered depths (with the faces' normals) on both
+    devices: >= 99.5% of the points matched within 1e-4; the cuFFT Poisson
+    solve within 1e-4 of chi's max; the splat within 1e-5."""
+    from scipy.spatial import cKDTree
+
+    images, K, Rs, ts, depths = _pm_room()
+    rec = Reconstruction()
+    rec.add_camera(Camera(camera_id=1, model_id=1, width=160, height=120,
+                          params=np.array([K[0, 0], K[1, 1], K[0, 2],
+                                           K[1, 2]])))
+    s = 4.0
+    Kinv = np.linalg.inv(K)
+    ys, xs = np.mgrid[0:120, 0:160]
+    rays = np.stack([xs + 0.5, ys + 0.5, np.ones((120, 160))], -1) @ Kinv.T
+    dmaps, nmaps = {}, {}
+    for i in range(4):
+        q = rot.rotmat_to_quat(torch.as_tensor(Rs[i], dtype=torch.float32))
+        rec.add_image(Image(image_id=i + 1, name=f"image{i:04d}.png",
+                            camera_id=1, cam_from_world=np.concatenate(
+                                [q.numpy(), ts[i]]).astype(np.float64)))
+        Xw = (rays * depths[i][..., None] - ts[i]) @ Rs[i]
+        face = np.argmin(np.stack([np.abs(Xw[..., 2] - s),
+                                   np.abs(Xw[..., 0] - s),
+                                   np.abs(Xw[..., 1] - s / 2)]), 0)
+        n_w = np.array([[0, 0, -1.0], [-1.0, 0, 0], [0, -1.0, 0]])[face]
+        dmaps[i + 1] = depths[i]
+        nmaps[i + 1] = (n_w @ Rs[i].T * (depths[i] > 0)[..., None]).astype(
+            np.float32)
+    # every image sees the others through the nearest-camera fallback
+    model = mvs_model.build_model(rec)
+    out = {dev: fusion_mod.fuse(model, dmaps, nmaps, None, device=dev)
+           for dev in ("cpu", cuda)}
+    assert len(out["cpu"]["xyz"]) > 2000
+    for a, b in ((out["cpu"], out[cuda]), (out[cuda], out["cpu"])):
+        dist, _ = cKDTree(b["xyz"]).query(a["xyz"])
+        assert (dist <= 1e-4).mean() >= 0.995
+
+    rng = np.random.default_rng(0)
+    u = rng.uniform(0, 1, (5000, 3)).astype(np.float32)
+    vals = rng.normal(size=(5000, 3)).astype(np.float32)
+    grids = [meshing._splat_points(u, vals, 64, device=dev).cpu().numpy()
+             for dev in ("cpu", cuda)]
+    np.testing.assert_allclose(grids[1], grids[0], atol=1e-5)
+    div = rng.normal(size=(64, 64, 64)).astype(np.float32)
+    chi = [meshing._poisson_solve_fft(torch.as_tensor(div, device=dev), 1e-2
+                                      ).cpu().numpy() for dev in ("cpu", cuda)]
+    np.testing.assert_allclose(chi[1], chi[0], atol=1e-4 * np.abs(chi[0]).max())

@@ -36,6 +36,7 @@ from colmap_tpu.geometry import rotation as jrot
 from colmap_tpu.scene.database import Database as JDatabase
 from colmap_tpu.scene.reconstruction import Camera, Image, Reconstruction
 from colmap_tpu_torch.controllers import automatic_reconstruction as tar
+from colmap_tpu_torch.controllers import dense_reconstruction as tdense
 from colmap_tpu_torch.controllers import feature_matching as tfm
 from colmap_tpu_torch.estimators.similarity_transform import (
     compare_reconstructions as tcompare)
@@ -168,11 +169,12 @@ def test_port_pixels_to_model(room):
 
 
 def test_unported_paths_raise(tmp_path):
-    base = dict(workspace_path=str(tmp_path), image_path=str(tmp_path))
+    """Multi-device PatchMatch and matching raise (ROADMAP item 11); the
+    dense branch itself runs (tests/test_torch_fusion_meshing.py)."""
     with pytest.raises(NotImplementedError):
-        tar.run_automatic_reconstruction(
-            tar.AutomaticReconstructionOptions(**base, sparse=False,
-                                               dense=True), device="cpu")
+        tdense.run_patch_match_stereo(
+            str(tmp_path), tdense.PatchMatchStereoOptions(num_devices=2),
+            device="cpu")
     db = TDatabase(":memory:")
     with pytest.raises(NotImplementedError):
         tfm.match_and_verify_blocks(
@@ -182,9 +184,9 @@ def test_unported_paths_raise(tmp_path):
 
 def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
     """The port runs the VIDEO path pixels to model (sequential pairing,
-    vocab-tree loop detection), imports the retrieval, pairing, GPS and
-    hierarchical-mapping modules and clusters a synthetic database without
-    importing jax or colmap_tpu."""
+    vocab-tree loop detection), imports the retrieval, pairing, GPS,
+    hierarchical-mapping and dense modules and clusters a synthetic
+    database without importing jax or colmap_tpu."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -200,6 +202,25 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
         from colmap_tpu_torch.estimators import alignment, pose_graph
         from colmap_tpu_torch.scene import scene_clustering, synthetic
         from colmap_tpu_torch.scene.database import Database
+        from colmap_tpu_torch import bench_patch_match
+        from colmap_tpu_torch.controllers import dense_reconstruction
+        from colmap_tpu_torch.image import rectification, undistortion, warp
+        from colmap_tpu_torch.mvs import (consistency_graph, depth_map,
+                                          fusion, meshing, model,
+                                          patch_match, workspace)
+        from colmap_tpu_torch.util import cache
+        K = torch.tensor([[14.0, 0, 8], [0, 14.0, 6], [0, 0, 1]])
+        depth, _, _ = patch_match.patch_match(
+            patch_match.GeneratorDraws(torch.Generator().manual_seed(0),
+                                       (12, 16)),
+            patch_match.PatchMatchProblem(
+                ref_image=torch.rand(12, 16), src_images=torch.rand(2, 12, 16),
+                K_ref=K, K_src=torch.stack([K, K]),
+                R_rel=torch.eye(3).expand(2, 3, 3),
+                t_rel=torch.tensor([[0.1, 0, 0], [-0.1, 0, 0]]),
+                depth_min=torch.tensor(1.0), depth_max=torch.tensor(4.0)),
+            patch_match.PatchMatchOptions(window_radius=1, num_iterations=1))
+        assert depth.shape == (12, 16)
         sdb = Database(":memory:")
         synthetic.synthesize_dataset(synthetic.SyntheticDatasetOptions(
             num_images=6, num_points3D=60, match_config=2,
