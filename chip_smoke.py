@@ -3,7 +3,7 @@ dense mesh on one GPU.
 
     python3 chip_smoke.py
 
-Runs colmap_tpu_torch (never jax or colmap_tpu) on four cells. The DSLR
+Runs colmap_tpu_torch (never jax or colmap_tpu) on six cells. The DSLR
 cell is the repo's DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH
 (8192 features), one PINHOLE camera, exhaustive pairing (190 pairs in one
 block), then the incremental mapper. The VIDEO cell is the JAX package's
@@ -18,13 +18,20 @@ scripts/hierarchical_timing.py) at full size: a synthetic match database
 of 200 images on a circle (SIMPLE_RADIAL 1024x768, 4000 points each seen
 by its 40 nearest cameras, 0.5 px noise, chained matches of overlap 10,
 seed 3) mapped by the hierarchical mapper in leaves of 60 images with 50
-overlap images on one worker thread (the faster setting on the card: 4
-threads queue on the forward-mode autodiff lock, PERF.md section 5; the
-card tests run the pipeline with 3). The dense cell is the JAX bench's
+overlap images on one worker thread (the faster setting on the card,
+PERF.md section 5; the card tests run the pipeline with 3). The dense cell is the JAX bench's
 PatchMatch resolution (bench.py:236) end to end: 12 rendered 640x480 room
 images (focal 560, seed 11), Quality.HIGH, one SIMPLE_RADIAL camera, then
 undistortion, PatchMatch stereo (photometric, then geometric), fusion and
-Poisson meshing with the JAX package's defaults. Phases:
+Poisson meshing with the JAX package's defaults. The rig cell is a
+4-camera capture rig (colmap_tpu_torch/bench_rig.py: SIMPLE_RADIAL
+1024x768 cameras facing front, right, back and left, 125 snapshots, 500
+images, 50,000 points, ~300k observations with 0.5 px noise: the JAX
+bench's BA size, bench.py:74-90) refined by the rig bundle adjuster. The
+prior cell is the pose-prior mapper on the port's synthetic database (100
+images on its circle, SIMPLE_RADIAL 1024x768, 3000 points each seen by its
+30 nearest cameras, 0.5 px noise, chained matches of overlap 10, seed 5)
+with Cartesian position priors. Phases:
 
 1. device: fails without CUDA; prints the card's name and power limit;
 2. build: compiles the matcher kernel (csrc/matcher_top2.cu) with nvcc;
@@ -90,17 +97,47 @@ Poisson meshing with the JAX package's defaults. Phases:
    room's three faces; fused.ply >= 10,000 points, >= 70% within 0.05 x
    room size of a face; meshed-poisson.ply > 500 vertices and faces with a
    median vertex distance < 0.08 x room size (tests/test_mvs.py:122-169).
+10. [rig]: write the rig's model and COLMAP rig_config.json (prefixes
+   cam{c}/), perturb every free rig pose by 0.5 deg and 3% of the snapshot
+   spacing, the non-reference extrinsics by 0.5 deg and 2 cm and every
+   point by 2 cm, then run_rig_bundle_adjustment on cuda (the launch
+   counter zeroed just before and read just after: K1 is not on this
+   path); prints the LM iterations, CG steps taken, host syncs, seconds
+   and peak device memory. Held, after a Sim3 alignment of the image
+   centres (the solver fixes 6 of the 7 gauge freedoms): final RMS
+   reprojection <= 0.8 px, every recovered cam_from_rig within 0.05 deg and
+   5 mm x the Sim3 scale, every image rotation within 0.1 deg. Then
+   estimate_generalized_absolute_pose on 32 snapshots at once (20% of
+   their observations replaced by outliers): every rig pose within 0.1 deg
+   and 1% of the spacing; estimate_generalized_relative_pose on 8
+   consecutive snapshot pairs at once (16,384 samples): every rotation
+   within 0.5 deg;
+11. [prior]: write position priors (coordinate_system 0: the true centre
+   plus N(0, sigma^2 I), sigma = 1% of the spread of the true centres),
+   then run_pose_prior_mapper on cuda (counter zeroed before, read after);
+   prints the seconds, the prior BA's counters and the peak memory. Held
+   against the ground truth with no Sim3 alignment (the priors put the
+   model in that frame): >= 95 of 100 registered, every rotation within 1
+   deg, every centre within 0.05 x the diameter of the true centres, the
+   median |centre - prior| <= 2 sigma. Then, on that model, on the card:
+   estimate_ba_covariance against estimate_pose_covariance_full_inverse
+   on every sixth point (rtol 1e-2, the JAX test's bound; gauge: pose 0
+   and x of pose 1), triangulate_points on the model with its points
+   removed (>= 90% of them back at a mean reprojection <= 1 px) and
+   register_images bringing 5 de-registered images back within 1 deg.
 
 The second-to-last line is the kernel report, one JSON object: its ms,
 plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
 `launches` the DSLR path's count; `shapes` holds all three shapes and
 `launches_by_path` every path's count (the dense cell's is its sparse
 stage's: PatchMatch, fusion and meshing are torch ops with no TPU kernel
-behind them). The last line is {"ok": true,
+behind them; the rig and prior cells read no descriptors, so 0). The last
+line is {"ok": true,
 "device": {...}}. Any failed check exits nonzero.
 """
 
 import collections
+import copy
 import json
 import logging
 import os
@@ -114,26 +151,35 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from colmap_tpu_torch import bench_ba, bench_hierarchical, cuda_build  # noqa: E402
+from colmap_tpu_torch import (  # noqa: E402
+    bench_ba, bench_hierarchical, bench_rig, cuda_build)
 from colmap_tpu_torch.bench_matcher import (  # noqa: E402
     bound_ms, cuda_ms, int_mm_ms, random_blocks)
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar  # noqa: E402
 from colmap_tpu_torch.controllers.incremental_pipeline import (  # noqa: E402
     IncrementalPipeline)
+from colmap_tpu_torch.estimators import bundle_adjustment as ba  # noqa: E402
+from colmap_tpu_torch.estimators import covariance  # noqa: E402
+from colmap_tpu_torch.estimators import generalized_pose as gp  # noqa: E402
 from colmap_tpu_torch.estimators.similarity_transform import (  # noqa: E402
     compare_reconstructions)
 from colmap_tpu_torch.features import hopper_matcher as hm  # noqa: E402
 from colmap_tpu_torch.features import pairing  # noqa: E402
+from colmap_tpu_torch.geometry import rigid3  # noqa: E402
 from colmap_tpu_torch.geometry import rotation as rot  # noqa: E402
 from colmap_tpu_torch.geometry import sim3  # noqa: E402
+from colmap_tpu_torch.optim.ransac import RansacOptions  # noqa: E402
 from colmap_tpu_torch.mvs import depth_map, fusion  # noqa: E402
 from colmap_tpu_torch.geometry.essential import (  # noqa: E402
     pose_from_essential_matrix)
 from colmap_tpu_torch.scene import reconstruction_io  # noqa: E402
+from colmap_tpu_torch.scene import synthetic  # noqa: E402
 from colmap_tpu_torch.scene import synthetic_images as synth  # noqa: E402
+from colmap_tpu_torch.scene.database import Database  # noqa: E402
 from colmap_tpu_torch.scene.reconstruction import (  # noqa: E402
     Camera, Image, Reconstruction)
 from colmap_tpu_torch.sensor import models as cam_models  # noqa: E402
+from colmap_tpu_torch.tools import rig_tools, sfm_tools  # noqa: E402
 
 
 VIDEO_FRAMES = 100  # the JAX package's run has 1000; cut to fit the limit
@@ -243,6 +289,13 @@ def main():
     # ---- 9. the dense cell
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_") as work:
         dense_path(work, report)
+
+    # ---- 10. rig BA and generalized pose
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rig_") as work:
+        rig_path(work, report)
+
+    # ---- 11. the pose-prior mapper and the SfM tools
+    prior_path(report)
 
     phase(f"[smoke] {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [report]}), flush=True)
@@ -418,8 +471,7 @@ def hierarchical_path(report):
           f"{tm['clustering']:.3f} s, caches {tm['caches']:.3f} s")
     for k, c in enumerate(run["clusters"]):
         phase(f"[hier] cluster {k}: {c['registered']}/{c['images']} "
-              f"registered in {c['seconds']:.3f} s; autodiff lock waited "
-              f"{c['ad_lock_wait_s']:.3f} s, held {c['ad_lock_held_s']:.3f} s")
+              f"registered in {c['seconds']:.3f} s")
     phase(f"[hier] mapping (1 worker) {tm['mapping']:.3f} s; merge: "
           f"alignment {tm['align']:.3f} s, pose graph "
           f"{tm['pose_graph']:.3f} s, fusion {tm['fuse']:.3f} s; wall "
@@ -484,6 +536,344 @@ def dense_path(work, report):
                 0.05 * ropts.room_size)
     check_dense(rec, gt, dense_dir, ropts.room_size)
     db.close()
+
+
+def reprojection_errors(rec, device) -> torch.Tensor:
+    """Every observation's reprojection error (pixels) in `rec`."""
+    errs = []
+    by_cam = collections.defaultdict(list)
+    for p in rec.points3D.values():
+        for iid, f in p.track:
+            im = rec.images[iid]
+            if im.registered:
+                by_cam[im.camera_id].append(
+                    (im.cam_from_world, p.xyz, im.xys[f]))
+    for cid, obs in by_cam.items():
+        cam = rec.cameras[cid]
+        pose, xyz, xy = (torch.as_tensor(np.stack(a), dtype=torch.float32,
+                                         device=device) for a in zip(*obs))
+        pc = rigid3.apply(pose, xyz)
+        proj = cam_models.img_from_cam(
+            cam.model_id, torch.as_tensor(cam.padded_params(), device=device),
+            pc[:, :2] / pc[:, 2:])
+        errs.append(torch.linalg.norm(proj - xy, dim=-1))
+    return torch.cat(errs)
+
+
+def rig_path(work, report, device="cuda", num_snapshots=125,
+             num_points=50_000, abs_snapshots=32, rel_pairs=8):
+    """Phase 10 in the scratch directory `work`: rig BA of a perturbed
+    4-camera capture through run_rig_bundle_adjustment, then generalized
+    absolute and relative pose on its snapshots."""
+    t0 = time.perf_counter()
+    scene = bench_rig.build_scene(num_snapshots=num_snapshots,
+                                  num_points=num_points, seed=0)
+    rec, gt = scene.reconstruction(), scene.reconstruction()
+    cams = bench_rig.perturb(rec, scene, seed=1)
+    config = scene.rig_config()
+    for c, cfg in enumerate(config[0]["cameras"]):
+        cfg["cam_from_rig_rotation"] = cams[c, :4].tolist()
+        cfg["cam_from_rig_translation"] = cams[c, 4:].tolist()
+    path = os.path.join(work, "rig_config.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    n_obs = sum(len(p.track) for p in rec.points3D.values())
+    phase(f"[rig] {scene.num_snapshots} snapshots x {scene.num_cameras} "
+          f"cameras, {len(rec.points3D)} points, {n_obs} observations, "
+          f"built and perturbed in {time.perf_counter() - t0:.3f} s; start "
+          f"RMS {float(reprojection_errors(rec, device).square().mean().sqrt()):.4f} px")
+    hm.launches = 0
+    stats = {}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rig_tools.run_rig_bundle_adjustment(rec, path, device=device, stats=stats)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    report["launches_by_path"]["rig"] = hm.launches
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    rms = float(reprojection_errors(rec, device).square().mean().sqrt())
+    phase(f"[rig] rig BA: {stats['lm_iterations']} LM iterations, "
+          f"{stats['cg_steps']} CG steps taken, {stats['syncs']} host syncs, "
+          f"{secs:.3f} s (solve and write-back); final RMS {rms:.4f} px; "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+    cmp = compare_reconstructions(rec, gt, device=device)
+    s = float(cmp["sim3"][0])
+    # the recovered extrinsics, read from snapshot 0's images
+    C = scene.num_cameras
+    ref = torch.as_tensor(rec.images[1].cam_from_world)
+    cam_rot, cam_trans = [], []
+    for c in range(1, C):
+        est = rigid3.compose(torch.as_tensor(rec.images[c + 1].cam_from_world),
+                             rigid3.inverse(ref))
+        true = torch.as_tensor(scene.cams_from_rig()[c])
+        cam_rot.append(float(rot.quat_angle_deg(est[:4], true[:4])))
+        cam_trans.append(float(torch.linalg.norm(s * est[4:] - true[4:])))
+    phase(f"[rig] after a Sim3 alignment (scale {s:.6f}): image rotations "
+          f"max {cmp['max_rotation_error_deg']:.6f} deg; cam_from_rig "
+          f"rotations {[round(a, 6) for a in cam_rot]} deg, translations "
+          f"{[round(t, 6) for t in cam_trans]} m")
+    if not rms <= 0.8:
+        fail(f"rig BA: final RMS reprojection {rms:.4f} px > 0.8")
+    if cmp["max_rotation_error_deg"] > 0.1:
+        fail("rig BA: an image rotation is more than 0.1 deg off")
+    if max(cam_rot) > 0.05 or max(cam_trans) > 0.005 * s:
+        fail("rig BA: a cam_from_rig is more than 0.05 deg / 5 mm off")
+    rig_pose_checks(scene, device, abs_snapshots, rel_pairs)
+
+
+def _snapshot_obs(scene, s):
+    """(points, cameras, normalized rays) of snapshot s's noisy
+    observations."""
+    C = scene.num_cameras
+    sel = np.nonzero(scene.obs_image // C == s)[0]
+    params = torch.as_tensor(cam_models.pad_params(
+        [bench_rig.FOCAL, bench_rig.WIDTH / 2, bench_rig.HEIGHT / 2,
+         bench_rig.RADIAL]), dtype=torch.float64)
+    rays = cam_models.cam_from_img(
+        int(cam_models.CameraModelId.SIMPLE_RADIAL), params,
+        torch.as_tensor(scene.obs_xy[sel])).numpy()
+    return scene.obs_point[sel], scene.obs_image[sel] % C, rays
+
+
+def _one_per_point(obs, rng):
+    """{point: (camera, ray)}, one random observation per point."""
+    out = {}
+    for k in rng.permutation(len(obs[0])):
+        out.setdefault(int(obs[0][k]), (int(obs[1][k]), obs[2][k]))
+    return out
+
+
+def _padded(rows):
+    """Stack per-problem (N_b, ...) arrays, zero-padded to the longest."""
+    n = max(len(r) for r in rows)
+    out = np.zeros((len(rows), n) + rows[0].shape[1:], rows[0].dtype)
+    for b, r in enumerate(rows):
+        out[b, :len(r)] = r
+    return out
+
+
+def rig_pose_checks(scene, device, abs_snapshots, rel_pairs):
+    """Generalized absolute pose of `abs_snapshots` snapshots at once (20%
+    of their observations replaced by outliers) and generalized relative
+    pose of `rel_pairs` consecutive snapshot pairs at once, each point
+    taken from one random camera per snapshot. The relative pose draws
+    16,384 samples, not JAX's default 2,048: a 5-point sample counts only
+    when it sees one camera on each side, ~0.1% of uniform draws on 4
+    cameras."""
+    rng = np.random.default_rng(2)
+    cams = torch.as_tensor(scene.cams_from_rig(), dtype=torch.float32,
+                           device=device)
+    rig_true = scene.rig_poses()
+    snaps = np.linspace(0, scene.num_snapshots - 1, abs_snapshots).astype(int)
+    X, U, CI, V = [], [], [], []
+    for s in snaps:
+        pts, cam_idx, uv = _snapshot_obs(scene, s)
+        bad = rng.random(len(pts)) < 0.2
+        uv[bad] += rng.normal(0, 0.1, (int(bad.sum()), 2))
+        X.append(scene.points[pts].astype(np.float32))
+        U.append(uv.astype(np.float32))
+        CI.append(cam_idx)
+        V.append(np.ones(len(pts), bool))
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gp.estimate_generalized_absolute_pose(
+        torch.Generator(device=device).manual_seed(0), dev(_padded(X)),
+        dev(_padded(U)), dev(_padded(CI)), cams, dev(_padded(V)),
+        RansacOptions(max_error=4.0 / bench_rig.FOCAL, num_samples=1024,
+                      lo_iterations=2))
+    est = res.rig_from_world.double().cpu()
+    secs = time.perf_counter() - t0
+    true = torch.as_tensor(rig_true[snaps])
+    ang = rot.quat_angle_deg(est[:, :4], true[:, :4])
+    dt = torch.linalg.norm(rigid3.projection_center(est)
+                           - rigid3.projection_center(true), dim=-1)
+    phase(f"[rig] generalized absolute pose of {len(snaps)} snapshots "
+          f"(20% outliers) in {secs:.3f} s: rotation max {float(ang.max()):.6f}"
+          f" deg, centre max {float(dt.max()):.6f} m (spacing "
+          f"{scene.spacing}); inliers {res.num_inliers.tolist()}")
+    if float(ang.max()) > 0.1 or float(dt.max()) > 0.01 * scene.spacing:
+        fail("generalized absolute pose: a rig pose is more than 0.1 deg / "
+             "1% of the spacing off")
+
+    R1, R2, C1, C2, V = [], [], [], [], []
+    pairs = [(s, s + 1) for s in np.linspace(
+        0, scene.num_snapshots - 2, rel_pairs).astype(int)]
+    for a, b in pairs:
+        oa = _one_per_point(_snapshot_obs(scene, a), rng)
+        ob = _one_per_point(_snapshot_obs(scene, b), rng)
+        common = sorted(set(oa) & set(ob))
+        R1.append(np.stack([oa[p][1] for p in common]).astype(np.float32))
+        R2.append(np.stack([ob[p][1] for p in common]).astype(np.float32))
+        C1.append(np.array([oa[p][0] for p in common]))
+        C2.append(np.array([ob[p][0] for p in common]))
+        V.append(np.ones(len(common), bool))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gp.estimate_generalized_relative_pose(
+        torch.Generator(device=device).manual_seed(1), dev(_padded(R1)),
+        dev(_padded(R2)), dev(_padded(C1)), dev(_padded(C2)), cams,
+        dev(_padded(V)), RansacOptions(max_error=0.05, num_samples=16384,
+                                       lo_iterations=2))
+    est = res.rig_from_world.double().cpu()
+    secs = time.perf_counter() - t0
+    true = torch.stack([rigid3.compose(torch.as_tensor(rig_true[b]),
+                                       rigid3.inverse(torch.as_tensor(
+                                           rig_true[a])))
+                        for a, b in pairs])
+    ang = rot.quat_angle_deg(est[:, :4], true[:, :4])
+    phase(f"[rig] generalized relative pose of {len(pairs)} snapshot pairs "
+          f"({[len(r) for r in R1]} common points, "
+          f"{[int((a != b).sum()) for a, b in zip(C1, C2)]} seen by another "
+          f"camera at the second position) in {secs:.3f} s: "
+          f"rotation max {float(ang.max()):.6f} deg")
+    if float(ang.max()) > 0.5:
+        fail("generalized relative pose: a rotation is more than 0.5 deg off")
+
+
+def prior_path(report, device="cuda", num_images=100, num_points=3000,
+               visibility=30):
+    """Phase 11: run_pose_prior_mapper on a synthetic database with
+    Cartesian position priors, held to the ground truth in the priors'
+    frame; then covariances, triangulation and registration on its
+    model."""
+    t0 = time.perf_counter()
+    db = Database(":memory:")
+    gt = synthetic.synthesize_dataset(synthetic.SyntheticDatasetOptions(
+        num_images=num_images, num_points3D=num_points, point2D_stddev=0.5,
+        match_config=synthetic.MatchConfig.CHAINED, match_overlap=10,
+        point_visibility_images=visibility, seed=5), db)
+    centres = {iid: gt.images[iid].projection_center()
+               for iid in gt.registered_image_ids()}
+    C = np.stack(list(centres.values()))
+    sigma = 0.01 * float(np.std(C, axis=0).mean())
+    rng = np.random.default_rng(5)
+    priors = {iid: c + rng.normal(0, sigma, 3) for iid, c in centres.items()}
+    for iid, p in priors.items():
+        db.write_pose_prior(iid, p, coordinate_system=0)
+    db.commit()
+    phase(f"[prior] synthesized {db.num_images()} images, "
+          f"{len(gt.points3D)} points, priors with sigma {sigma:.6f} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    hm.launches = 0
+    stats = {}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = sfm_tools.run_pose_prior_mapper(db, device=device, stats=stats)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    report["launches_by_path"]["prior"] = hm.launches
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if rec is None:
+        fail("the pose-prior mapper returned no model")
+    diameter = float(np.max(np.linalg.norm(C[:, None] - C[None], axis=-1)))
+    ang, dist, to_prior = [], [], []
+    for iid in rec.registered_image_ids():
+        im = rec.images[iid]
+        ang.append(float(rot.quat_angle_deg(
+            torch.as_tensor(im.cam_from_world[:4]),
+            torch.as_tensor(gt.images[iid].cam_from_world[:4]))))
+        dist.append(float(np.linalg.norm(im.projection_center()
+                                         - centres[iid])))
+        to_prior.append(float(np.linalg.norm(im.projection_center()
+                                             - priors[iid])))
+    n_reg = rec.num_registered_images()
+    phase(f"[prior] run_pose_prior_mapper: {n_reg}/{num_images} registered, "
+          f"{len(rec.points3D)} points in {secs:.3f} s; prior BA "
+          f"{stats.get('lm_iterations')} LM iterations, "
+          f"{stats.get('cg_steps')} CG steps, {stats.get('syncs')} host "
+          f"syncs; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    phase(f"[prior] no Sim3: rotation max {max(ang):.6f} deg, centre max "
+          f"{max(dist):.6f} (limit {0.05 * diameter:.4f}), median |centre - "
+          f"prior| {np.median(to_prior):.6f} (limit {2 * sigma:.6f})")
+    if n_reg < 0.95 * num_images:
+        fail(f"prior mapper: only {n_reg} of {num_images} registered")
+    if max(ang) > 1.0 or max(dist) > 0.05 * diameter:
+        fail("prior mapper: a pose is off the ground truth")
+    if not np.median(to_prior) <= 2 * sigma:
+        fail("prior mapper: the model is not in the priors' frame")
+    prior_model_checks(rec, db, gt, device)
+    db.close()
+
+
+def prior_model_checks(rec, db, gt, device):
+    """Covariances (the Schur path against the full inverse, on every
+    sixth point), known-pose triangulation and image registration on the
+    prior mapper's model."""
+    reg = rec.registered_image_ids()
+    pids = sorted(rec.points3D)[::6]
+    row = {iid: k for k, iid in enumerate(reg)}
+    obs = [(row[iid], k, rec.images[iid].xys[f])
+           for k, pid in enumerate(pids) for iid, f in rec.points3D[pid].track
+           if iid in row]
+    cam = rec.cameras[rec.images[reg[0]].camera_id]
+    cam_ids = sorted(rec.cameras)
+    problem = ba.make_problem(
+        np.stack([rec.images[i].cam_from_world for i in reg]),
+        np.stack([rec.cameras[c].padded_params() for c in cam_ids]),
+        np.stack([rec.points3D[p].xyz for p in pids]),
+        np.array([o[0] for o in obs]),
+        np.array([cam_ids.index(rec.images[reg[o[0]]].camera_id)
+                  for o in obs]),
+        np.array([o[1] for o in obs]), np.stack([o[2] for o in obs]),
+        fix_first_pose_and_gauge=True, device=device)
+    t0 = time.perf_counter()
+    est = covariance.estimate_ba_covariance(problem,
+                                            camera_model_id=cam.model_id)
+    t_schur = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = covariance.estimate_pose_covariance_full_inverse(problem,
+                                                            cam.model_id)
+    t_full = time.perf_counter() - t0
+    worst = max(float(np.max(np.abs(Cp - full[p, :, p, :])
+                             / (np.abs(full[p, :, p, :]) * 1e-2 + 1e-8)))
+                for p, Cp in est.pose_covs.items())
+    phase(f"[prior] covariance of {len(reg)} poses over {len(pids)} points "
+          f"({len(obs)} observations): Schur {t_schur:.3f} s, full inverse "
+          f"{t_full:.3f} s; worst |diff| / (1e-2 |full| + 1e-8) {worst:.4f}")
+    if 0 in est.pose_covs or worst > 1.0:
+        fail("covariance: the Schur path disagrees with the full inverse")
+
+    bare = copy.deepcopy(rec)
+    for pid in list(bare.points3D):
+        bare.delete_point3D(pid)
+    t0 = time.perf_counter()
+    tri = sfm_tools.triangulate_points(db, bare, device=device)
+    secs = time.perf_counter() - t0
+    err = float(reprojection_errors(tri, device).mean())
+    phase(f"[prior] triangulate_points: {len(tri.points3D)} points "
+          f"(model {len(rec.points3D)}) in {secs:.3f} s, mean reprojection "
+          f"{err:.4f} px")
+    if len(tri.points3D) < 0.9 * len(rec.points3D) or not err <= 1.0:
+        fail("triangulate_points: too few points or reprojection > 1 px")
+
+    holes = copy.deepcopy(rec)
+    gone = reg[5::20][:5]
+    for iid in gone:
+        holes.images[iid].cam_from_world = None
+    t0 = time.perf_counter()
+    back = sfm_tools.register_images(db, holes, device=device)
+    secs = time.perf_counter() - t0
+    ang = [float(rot.quat_angle_deg(
+        torch.as_tensor(back.images[i].cam_from_world[:4]),
+        torch.as_tensor(gt.images[i].cam_from_world[:4])))
+        if back.images[i].registered else float("inf") for i in gone]
+    phase(f"[prior] register_images: {gone} back in {secs:.3f} s, rotation "
+          f"errors {[round(a, 6) for a in ang]} deg")
+    if max(ang) > 1.0:
+        fail("register_images: an image did not come back within 1 deg")
 
 
 def check_dense(rec, gt, dense_dir, s, device="cuda"):

@@ -12,9 +12,7 @@ Sim3 alignment (the gate: >= 95% registered, <= 1 deg, <= 0.05):
     python -m colmap_tpu_torch.bench_hierarchical [--device cuda]
         [--workers 1,4] [--out bench_hierarchical.json]
 
-Each cluster also reports the seconds its thread waited for and held the
-forward-mode autodiff lock (`util/forward_ad.py`), which serializes the
-Jacobians of BA, PnP and undistortion across the worker threads.
+Each cluster also reports its mapping seconds.
 
 The last line of its output is the report as one JSON object.
 """
@@ -131,8 +129,7 @@ def main():
               f"timings {run['timings']}", flush=True)
         for k, c in enumerate(run["clusters"]):
             print(f"[hier] workers={w} cluster {k}: {c['seconds']:.3f} s, "
-                  f"autodiff lock waited {c['ad_lock_wait_s']:.3f} s, "
-                  f"held {c['ad_lock_held_s']:.3f} s", flush=True)
+                  f"{c['registered']}/{c['images']} registered", flush=True)
     walls = {r["workers"]: r["wall_s"] for r in report["runs"]}
     if 1 in walls and 4 in walls:
         report["speedup_4_over_1"] = walls[1] / walls[4]

@@ -39,7 +39,6 @@ from colmap_tpu_torch.scene import scene_clustering as sc
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.scene.database_cache import DatabaseCache
 from colmap_tpu_torch.scene.reconstruction import Reconstruction
-from colmap_tpu_torch.util import forward_ad
 from colmap_tpu_torch.util.controller import BaseController
 
 logger = logging.getLogger("colmap_tpu_torch")
@@ -56,9 +55,9 @@ class HierarchicalPipelineOptions:
     min_num_inliers: int = 15
     # concurrent cluster reconstructions (reference: a thread pool over
     # the clusters, hierarchical_mapper.cc). On one H100 the 200-image
-    # hierarchical gate mapped 0.50-0.62x as fast with 4 threads as with 1
-    # (PERF.md section 5): the threads share one process and its locks, so
-    # on CUDA num_workers=1 is the faster setting today.
+    # hierarchical gate mapped 0.50x as fast with 4 threads as with 1
+    # (158.9 against 79.1 s, PERF.md section 5): the threads share one
+    # process, so on CUDA num_workers=1 is the faster setting today.
     num_workers: int = 4
     # pose-graph edge acceptance
     align_max_error: float = 0.1
@@ -67,8 +66,7 @@ class HierarchicalPipelineOptions:
 
 class HierarchicalPipeline(BaseController):
     """After `run`: `leaf_sizes`, `clusters` (per leaf: images, registered,
-    mapping seconds, and the seconds its thread waited for and held the
-    forward-mode autodiff lock of `util/forward_ad.py`), `timings` (wall
+    mapping seconds), `timings` (wall
     seconds of clustering, caches, mapping, align, pose_graph, fuse), and
     the clusters' mapper `stage_s` and BA counters `ba_stats`, summed over
     clusters. Each `run` starts these afresh."""
@@ -99,15 +97,12 @@ class HierarchicalPipeline(BaseController):
         def work(args):
             li, cache = args
             if self.check_if_stopped():
-                return None, None, 0.0, (0.0, 0.0)
+                return None, None, 0.0
             t = time.perf_counter()
-            w0, h0 = forward_ad.lock.thread_seconds()
             pipeline = IncrementalPipeline(
                 self.database, self.options.incremental, device=self.device)
             rec = pipeline.run(seed=seed + li, cache=cache)
-            w1, h1 = forward_ad.lock.thread_seconds()
-            return (rec, pipeline, time.perf_counter() - t,
-                    (w1 - w0, h1 - h0))
+            return rec, pipeline, time.perf_counter() - t
 
         workers = max(1, min(self.options.num_workers, len(leaves)))
         t0 = time.perf_counter()
@@ -119,12 +114,10 @@ class HierarchicalPipeline(BaseController):
         self.timings["mapping"] += time.perf_counter() - t0
 
         recs = []
-        for li, (rec, pipeline, secs, (wait, held)) in enumerate(results):
+        for li, (rec, pipeline, secs) in enumerate(results):
             n_reg = 0 if rec is None else rec.num_registered_images()
             self.clusters.append(dict(images=len(leaves[li].image_ids),
-                                      registered=n_reg, seconds=secs,
-                                      ad_lock_wait_s=wait,
-                                      ad_lock_held_s=held))
+                                      registered=n_reg, seconds=secs))
             if pipeline is not None:
                 for k, v in pipeline.stage_s.items():
                     self.stage_s[k] += v

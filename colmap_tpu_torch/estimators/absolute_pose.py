@@ -6,7 +6,8 @@ estimators/absolute_pose.h:34, estimators/pose.h:156). Grunert's
 resultant-based P3P assembles its quartic coefficients elementwise, so
 thousands of P3P problems solve at once; the pose refinement is a fixed
 number of damped Gauss-Newton steps on the SE3 tangent whose Jacobians come
-from forward-mode autodiff (torch.func.jacfwd, vmapped over the problems).
+from reverse-mode autodiff of one observation's residual (torch.func.jacrev,
+vmapped over the observations and the problems).
 Where the JAX functions take one problem and are vmapped, these take any
 number of leading batch axes.
 """
@@ -21,7 +22,6 @@ from colmap_tpu_torch.estimators.utils import eigh, solve, svd
 from colmap_tpu_torch.geometry import rigid3, rotation as rot
 from colmap_tpu_torch.math.polynomial import find_roots_durand_kerner
 from colmap_tpu_torch.optim.ransac import RansacOptions, ransac
-from colmap_tpu_torch.util import forward_ad
 
 
 def _kabsch(src: torch.Tensor, dst: torch.Tensor, weights=None):
@@ -128,19 +128,32 @@ def reprojection_residuals(pose: torch.Tensor, data: tuple) -> torch.Tensor:
     return torch.where(behind, torch.full_like(r2, 1e6), r2)
 
 
-def _weighted_residual(delta, pose, points3d, uv, weights):
-    """One problem's (2N,) weighted residual at exp_update(pose, delta)."""
+def _obs_residual(delta, pose, points3d, uv, weights):
+    """Weighted residuals (..., 2) of observations at exp_update(pose,
+    delta)."""
     pc = rigid3.apply(rigid3.exp_update(pose, delta), points3d)
     z = torch.where(pc[..., 2] > 1e-6, pc[..., 2],
                     torch.full_like(pc[..., 2], 1e-6))
     proj = pc[..., :2] / z[..., None]
-    return ((proj - uv) * weights[..., None]).reshape(-1)
+    return (proj - uv) * weights[..., None]
 
 
-_residual_and_jac = torch.func.vmap(
-    lambda d, p, x, uv, w: (
-        _weighted_residual(d, p, x, uv, w),
-        torch.func.jacfwd(_weighted_residual)(d, p, x, uv, w)))
+def _weighted_residual(delta, pose, points3d, uv, weights):
+    """One problem's (2N,) weighted residual at exp_update(pose, delta)."""
+    return _obs_residual(delta, pose, points3d, uv, weights).reshape(-1)
+
+
+# per observation a 2x6 Jacobian (each residual pair depends on its own
+# point only), vmapped over the observations, then over the problems
+_obs_jac = torch.func.vmap(torch.func.vmap(
+    torch.func.jacrev(_obs_residual), in_dims=(None, None, 0, 0, 0)))
+
+
+def _residual_and_jac(d, p, x, uv, w):
+    """(B, 2N) weighted residuals and their (B, 2N, 6) Jacobian."""
+    J = _obs_jac(d, p, x, uv, w)
+    return (torch.func.vmap(_weighted_residual)(d, p, x, uv, w),
+            J.reshape(J.shape[0], -1, 6))
 
 
 def gn_refine_pose(pose: torch.Tensor, points3d: torch.Tensor,
@@ -159,8 +172,7 @@ def gn_refine_pose(pose: torch.Tensor, points3d: torch.Tensor,
     delta0 = torch.zeros(pose.shape[:-1] + (6,), dtype=pose.dtype,
                          device=pose.device)
     for _ in range(num_iters):
-        with forward_ad.lock:
-            r, J = _residual_and_jac(delta0, pose, points3d, uv, weights)
+        r, J = _residual_and_jac(delta0, pose, points3d, uv, weights)
         JtJ = J.transpose(-1, -2) @ J
         Jtr = torch.einsum("bki,bk->bi", J, r)
         H = (JtJ + lm_lambda * torch.diag_embed(

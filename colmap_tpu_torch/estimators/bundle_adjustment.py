@@ -7,8 +7,10 @@ stack of estimators/bundle_adjustment.h:15-197):
   * the problem is a flat tableau of observations (pose_idx, cam_idx,
     point_idx, xy, weight);
   * per-observation 2x21 Jacobians (6 pose tangent + 12 intrinsics + 3
-    point) come from forward-mode autodiff, vmapped over the observations
-    (torch.func.vmap of torch.func.jacfwd over the same _project_residual);
+    point) come from reverse-mode autodiff, vmapped over the observations
+    (torch.func.vmap of torch.func.jacrev over the same _project_residual:
+    two cotangents per observation, and no process-wide state, so threads
+    may call it at once);
   * the camera system is reduced by the Schur complement matrix-free:
     S u = A u - W Hpp^-1 W^T u from per-observation contractions and
     segment sums (index_add_); point blocks (3x3) invert in closed form;
@@ -39,7 +41,6 @@ import torch
 
 from colmap_tpu_torch.geometry import rigid3
 from colmap_tpu_torch.sensor import models as camera_models
-from colmap_tpu_torch.util import forward_ad
 
 
 class BAProblem(NamedTuple):
@@ -113,11 +114,10 @@ def _obs_residual_and_jac(problem: BAProblem, model_id: int,
     z6 = torch.zeros(6, dtype=poses.dtype, device=poses.device)
     z12 = torch.zeros(12, dtype=poses.dtype, device=poses.device)
     z3 = torch.zeros(3, dtype=poses.dtype, device=poses.device)
-    with forward_ad.lock:
-        jac = torch.func.vmap(
-            lambda pose, cam, point, xy: torch.func.jacfwd(
-                single, argnums=argnums)(z6, z12, z3, pose, cam, point, xy)
-        )(poses, cams, points, problem.obs_xy)
+    jac = torch.func.vmap(
+        lambda pose, cam, point, xy: torch.func.jacrev(
+            single, argnums=argnums)(z6, z12, z3, pose, cam, point, xy)
+    )(poses, cams, points, problem.obs_xy)
     if with_cam:
         Jp, Jc, Jx = jac
     else:

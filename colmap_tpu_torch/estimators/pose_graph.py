@@ -11,7 +11,7 @@ Each node i carries a global_from_cluster_i Sim3 as a 7-dof tangent (log
 scale, rotation vector, translation). Edge (i, j) with measurement
 Sji = cluster_j_from_cluster_i contributes the residual
 tangent(inv(Sji) . (S_j^-1 . S_i)). The dense Jacobian comes from
-`torch.func.jacfwd`, the normal equations (7N x 7N; cluster counts are
+`torch.func.jacrev`, the normal equations (7N x 7N; cluster counts are
 small) solve in one call per iteration, and node 0 is the gauge. The
 iterations are a fixed loop whose accept and reject steps are
 `torch.where` on the device: the only host read is the result.
@@ -26,7 +26,6 @@ import torch
 
 from colmap_tpu_torch.geometry import rotation as rot
 from colmap_tpu_torch.geometry import sim3
-from colmap_tpu_torch.util import forward_ad
 
 
 def _params_to_sim3(p: torch.Tensor) -> torch.Tensor:
@@ -55,7 +54,7 @@ def _solve(params0: torch.Tensor, edges_i: torch.Tensor,
         err = sim3.compose(meas_inv, pred)
         return (_sim3_tangent(err) * weights[:, None]).reshape(-1)
 
-    jac = torch.func.jacfwd(residuals)
+    jac = torch.func.jacrev(residuals)
     mask = torch.ones(n * 7, dtype=params0.dtype, device=params0.device)
     mask[:7] = 0.0  # gauge: node 0 stays fixed
     fixed = torch.diag(1.0 - mask)
@@ -64,8 +63,7 @@ def _solve(params0: torch.Tensor, edges_i: torch.Tensor,
     cost = 0.5 * torch.sum(residuals(params) ** 2)
     for _ in range(num_iters):
         r = residuals(params)
-        with forward_ad.lock:
-            J = jac(params)
+        J = jac(params)
         H = J.T @ J
         g = J.T @ r
         H = H * mask[:, None] * mask[None, :] + fixed

@@ -3,8 +3,8 @@
 Port of the parts of colmap_tpu/geometry/rotation.py that two-view
 geometry, absolute pose and bundle adjustment use. Quaternions are
 (w, x, y, z); R(q) @ v rotates world->frame vectors. Every function is
-functional (no in-place writes), so torch.func transforms (vmap, jvp,
-jacfwd) run through it.
+functional (no in-place writes), so torch.func transforms (vmap, vjp,
+jacrev) run through it.
 """
 
 from __future__ import annotations

@@ -14,7 +14,6 @@ import enum
 import numpy as np
 import torch
 
-from colmap_tpu_torch.util import forward_ad
 
 MAX_PARAMS = 12
 
@@ -294,18 +293,20 @@ def cam_from_img(model_id: int, params: torch.Tensor,
     def fn(q):
         return distort(params, q)
 
+    # each point's distortion depends on that point only, so the vector-
+    # Jacobian product with the cotangent e_u (e_v) gives every point's
+    # first (second) Jacobian row
     e_u = torch.stack([torch.ones_like(duv[..., 0]),
                        torch.zeros_like(duv[..., 0])], -1)
     e_v = torch.stack([torch.zeros_like(duv[..., 0]),
                        torch.ones_like(duv[..., 0])], -1)
     uv = duv
     for _ in range(_NEWTON_ITERS):
-        with forward_ad.lock:
-            f, jvp_u = torch.func.jvp(fn, (uv,), (e_u,))
-            _, jvp_v = torch.func.jvp(fn, (uv,), (e_v,))
+        f, vjp_fn = torch.func.vjp(fn, uv)
+        (row_u,), (row_v,) = vjp_fn(e_u), vjp_fn(e_v)
         r = f - duv
-        a, c = jvp_u[..., 0], jvp_u[..., 1]
-        b, d = jvp_v[..., 0], jvp_v[..., 1]
+        a, b = row_u[..., 0], row_u[..., 1]
+        c, d = row_v[..., 0], row_v[..., 1]
         det = a * d - b * c
         det = torch.where(torch.abs(det) > 1e-12, det,
                           torch.full_like(det, 1e-12))

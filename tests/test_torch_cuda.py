@@ -4,8 +4,11 @@ against the same front end on the CPU, bundle adjustment and batched PnP
 registration on CUDA against the CPU, and the vocab tree's k-means and
 quantiser and sequential matching with loop detection on CUDA against the
 CPU, the Sim3 pose graph and robust alignment on CUDA against the CPU, the
-hierarchical mapper on CUDA with three worker threads, and PatchMatch,
-fusion, the splat and the cuFFT Poisson solve on CUDA against the CPU. Every test needs a CUDA device and the CUDA toolkit and skips without
+hierarchical mapper on CUDA with three worker threads, PatchMatch,
+fusion, the splat and the cuFFT Poisson solve on CUDA against the CPU, the
+reverse-mode Jacobians of BA, PnP, the pose graph and undistortion, rig
+BA, prior BA and the BA covariances on CUDA against the CPU. Every test
+needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
 
@@ -16,13 +19,16 @@ import numpy as np
 import pytest
 import torch
 
-from colmap_tpu_torch import bench_ba, bench_matcher
+from colmap_tpu_torch import bench_ba, bench_matcher, bench_rig
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar
 from colmap_tpu_torch.controllers import feature_extraction as fe
 from colmap_tpu_torch.controllers import feature_matching as fm
 from colmap_tpu_torch.controllers import hierarchical_pipeline as hp
+from colmap_tpu_torch.estimators import absolute_pose as ap
 from colmap_tpu_torch.estimators import alignment as align
 from colmap_tpu_torch.estimators import bundle_adjustment as ba
+from colmap_tpu_torch.estimators import covariance as cov
+from colmap_tpu_torch.estimators import pose_prior_ba as pba
 from colmap_tpu_torch.estimators import pose_graph as pg
 from colmap_tpu_torch.estimators import similarity_transform as st
 from colmap_tpu_torch.geometry import rigid3, rotation as rot
@@ -41,7 +47,9 @@ from colmap_tpu_torch.scene import synthetic as tsyn
 from colmap_tpu_torch.scene import synthetic_images as synth
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.scene.reconstruction import Camera, Image, Reconstruction
+from colmap_tpu_torch.sensor import models as cm
 from colmap_tpu_torch.sfm.incremental_mapper import _pnp_ransac_batch
+from colmap_tpu_torch.tools import rig_tools
 
 pytestmark = pytest.mark.cuda
 
@@ -481,3 +489,127 @@ def test_fusion_and_poisson_cuda_match_cpu(cuda):
     chi = [meshing._poisson_solve_fft(torch.as_tensor(div, device=dev), 1e-2
                                       ).cpu().numpy() for dev in ("cpu", cuda)]
     np.testing.assert_allclose(chi[1], chi[0], atol=1e-4 * np.abs(chi[0]).max())
+
+
+def _ba_jacobians(dev):
+    problem, _ = bench_ba.build_problem(num_poses=8, num_points=400,
+                                        obs_per_point=4, seed=5, device=dev)
+    return ba._obs_residual_and_jac(problem,
+                                    int(cm.CameraModelId.SIMPLE_RADIAL))
+
+
+def _pnp_jacobians(dev):
+    g = torch.Generator().manual_seed(2)
+    X = 2 * torch.rand(4, 60, 3, generator=g) + torch.tensor([-1.0, -1, 4])
+    uv = X[..., :2] / X[..., 2:]
+    pose = torch.tensor([[1.0, 0.02, -0.01, 0.03, 0.1, -0.05, 0.2]] * 4)
+    return ap._residual_and_jac(torch.zeros(4, 6, device=dev), pose.to(dev),
+                                X.to(dev), uv.to(dev),
+                                torch.ones(4, 60, device=dev))
+
+
+def _pose_graph_step(dev):
+    init, edges, meas = _sim3_ring()
+    return pg.optimize_sim3_pose_graph(init, edges, meas, num_iters=1,
+                                       device=dev)
+
+
+def _undistortion(dev):
+    g = torch.Generator().manual_seed(3)
+    xy = torch.rand(500, 2, generator=g) * torch.tensor([640.0, 480.0])
+    p = torch.as_tensor(cm.pad_params([300.0, 310.0, 320.0, 240.0, 0.1,
+                                       -0.05, 0.01, 0.002]))
+    return cm.cam_from_img(int(cm.CameraModelId.OPENCV_FISHEYE), p.to(dev),
+                           xy.to(dev))
+
+
+@pytest.mark.parametrize("fn", [_ba_jacobians, _pnp_jacobians,
+                                _pose_graph_step, _undistortion],
+                         ids=["ba", "pnp", "pose_graph", "undistortion"])
+def test_reverse_mode_jacobians_cuda_match_cpu(cuda, fn):
+    out = {dev: fn(dev) for dev in ("cpu", cuda)}
+    pairs = zip(*(o if isinstance(o, tuple) else (o,)
+                  for o in (out["cpu"], out[cuda])))
+    for a, b in pairs:
+        a, b = torch.as_tensor(a), torch.as_tensor(b).cpu()
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(a.abs().max())))
+
+
+def test_rig_ba_cuda_matches_cpu(cuda, tmp_path):
+    import json
+
+    scene = bench_rig.build_scene(num_snapshots=8, num_points=1500, seed=3)
+    recs = {}
+    for dev in ("cpu", cuda):
+        rec = scene.reconstruction()
+        cams = bench_rig.perturb(rec, scene, seed=4)
+        config = scene.rig_config()
+        for c, cfg in enumerate(config[0]["cameras"]):
+            cfg["cam_from_rig_rotation"] = cams[c, :4].tolist()
+            cfg["cam_from_rig_translation"] = cams[c, 4:].tolist()
+        path = tmp_path / f"rig_{dev}.json"
+        path.write_text(json.dumps(config))
+        stats = {}
+        rig_tools.run_rig_bundle_adjustment(rec, str(path), device=dev,
+                                            stats=stats)
+        assert stats["syncs"] == 0 and stats["cg_steps"] > 0
+        recs[dev] = rec
+    for iid, im in recs["cpu"].images.items():
+        np.testing.assert_allclose(recs[cuda].images[iid].cam_from_world,
+                                   im.cam_from_world, atol=1e-3)
+    gt = scene.image_poses()
+    for iid, im in recs[cuda].images.items():
+        assert float(rot.quat_angle_deg(
+            torch.as_tensor(im.cam_from_world[:4]),
+            torch.as_tensor(gt[iid - 1, :4]))) < 0.2
+
+
+def test_prior_ba_cuda_matches_cpu(cuda):
+    import copy
+
+    gt = tsyn.synthesize_dataset(tsyn.SyntheticDatasetOptions(
+        num_cameras=1, num_images=8, num_points3D=150, seed=6),
+        Database(":memory:"))
+    rng = np.random.default_rng(0)
+    rec = copy.deepcopy(gt)
+    for iid in rec.registered_image_ids():
+        rec.images[iid].cam_from_world = (rec.images[iid].cam_from_world
+                                          + np.r_[0, 0, 0, 0, 0.05, 0, 0])
+    priors = {iid: gt.images[iid].projection_center()
+              + rng.normal(0, 0.01, 3) for iid in gt.registered_image_ids()}
+    out = {}
+    for dev in ("cpu", cuda):
+        r = copy.deepcopy(rec)
+        pba.refine_with_priors(r, priors, sigma=0.01, options=pba.PriorBAOptions(
+            camera_model_id=int(gt.cameras[1].model_id)), device=dev)
+        out[dev] = r
+    for iid in priors:
+        np.testing.assert_allclose(out[cuda].images[iid].cam_from_world,
+                                   out["cpu"].images[iid].cam_from_world,
+                                   atol=1e-3)
+
+
+def test_covariance_cuda_matches_cpu(cuda):
+    problem, _ = bench_ba.build_problem(num_poses=6, num_points=200,
+                                        obs_per_point=4, seed=9, device="cpu")
+    mask = torch.ones_like(problem.pose_mask)
+    mask[0] = 0.0
+    mask[1, 3] = 0.0
+    problem = problem._replace(pose_mask=mask)
+    mid = int(cm.CameraModelId.SIMPLE_RADIAL)
+    opts = cov.CovarianceOptions(compute_point_covariances=True)
+    out = {dev: cov.estimate_ba_covariance(
+        ba.BAProblem(*(x.to(dev) for x in problem)), opts, mid)
+        for dev in ("cpu", cuda)}
+    assert sorted(out[cuda].pose_covs) == [1, 2, 3, 4, 5]
+    for p, C in out["cpu"].pose_covs.items():
+        np.testing.assert_allclose(out[cuda].pose_covs[p], C,
+                                   atol=1e-3 * np.abs(C).max())
+    for m, C in out["cpu"].point_covs.items():
+        np.testing.assert_allclose(out[cuda].point_covs[m], C,
+                                   atol=1e-3 * np.abs(C).max())
+    full = cov.estimate_pose_covariance_full_inverse(
+        ba.BAProblem(*(x.to(cuda) for x in problem)), mid)
+    for p, C in out[cuda].pose_covs.items():
+        np.testing.assert_allclose(C, full[p, :, p, :], rtol=1e-2, atol=1e-8)

@@ -185,8 +185,9 @@ def test_unported_paths_raise(tmp_path):
 def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
     """The port runs the VIDEO path pixels to model (sequential pairing,
     vocab-tree loop detection), imports the retrieval, pairing, GPS,
-    hierarchical-mapping and dense modules and clusters a synthetic
-    database without importing jax or colmap_tpu."""
+    hierarchical-mapping, dense, rig, pose-prior and tool modules, solves
+    a small rig BA and clusters a synthetic database without importing jax
+    or colmap_tpu."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -209,6 +210,23 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
                                           fusion, meshing, model,
                                           patch_match, workspace)
         from colmap_tpu_torch.util import cache
+        from colmap_tpu_torch.optim import least_absolute_deviations
+        from colmap_tpu_torch.scene import camera_rig
+        from colmap_tpu_torch.estimators import (
+            coordinate_frame, covariance, generalized_pose, pose_prior_ba,
+            rig_bundle_adjustment)
+        from colmap_tpu_torch.image import line
+        from colmap_tpu_torch.tools import (html_viewer, model_tools,
+                                           rig_tools, sfm_tools)
+        rig_problem = rig_bundle_adjustment.make_rig_problem(
+            [[1.0, 0, 0, 0, 0, 0, 0]] * 2, [[1.0, 0, 0, 0, 0, 0, 0]] * 2,
+            [[100.0] + [0.0] * 11] * 2, [[0.0, 0, 5], [1, 0, 5]],
+            [0, 1, 0, 1], [0, 1, 1, 0], [0, 0, 1, 1],
+            [[0.0, 0], [0, 0], [20, 0], [20, 0]], device="cpu")
+        _, cost = rig_bundle_adjustment.solve_rig(
+            rig_problem, rig_bundle_adjustment.RigBAOptions(
+                max_iterations=2, cg_iterations=3))
+        assert float(cost) < 1e-6
         K = torch.tensor([[14.0, 0, 8], [0, 14.0, 6], [0, 0, 1]])
         depth, _, _ = patch_match.patch_match(
             patch_match.GeneratorDraws(torch.Generator().manual_seed(0),

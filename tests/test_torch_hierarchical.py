@@ -472,7 +472,7 @@ def test_hierarchical_pipeline_matches_jax_gates(fixture_12, leaf, overlap,
 def test_hierarchical_pipeline_run_starts_afresh(fixture_12):
     """`run` reports its own clusters, timings, stages and BA counters, not
     sums with what an earlier run left; every cluster reports its
-    autodiff-lock seconds."""
+    mapping seconds."""
     _, tdb, _, _ = fixture_12
     opts = HierarchicalPipelineOptions(num_workers=1)
     opts.clustering.leaf_max_num_images = 5
@@ -488,52 +488,14 @@ def test_hierarchical_pipeline_run_starts_afresh(fixture_12):
         assert all(v < stale for v in d.values()), d
     assert len(pipe.clusters) <= pipe.ba_stats["gba_calls"]
     for c in pipe.clusters:
-        assert c["ad_lock_wait_s"] >= 0.0
-        assert 0.0 < c["ad_lock_held_s"] <= c["seconds"]
-
-
-def test_forward_ad_lock_counts_wait_and_hold_per_thread():
-    """The lock sums, per thread, the seconds spent waiting for it and the
-    seconds of its outermost hold; a re-entrant hold is not counted twice."""
-    import threading
-    import time
-
-    from colmap_tpu_torch.util.forward_ad import _TimedLock
-
-    lk = _TimedLock()
-    held = threading.Event()
-    seconds = {}
-
-    def holder():
-        with lk:
-            with lk:
-                held.set()
-                time.sleep(0.3)
-        seconds["holder"] = lk.thread_seconds()
-
-    def waiter():
-        held.wait()
-        with lk:
-            pass
-        seconds["waiter"] = lk.thread_seconds()
-
-    threads = [threading.Thread(target=holder), threading.Thread(target=waiter)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=30)
-    h_wait, h_held = seconds["holder"]
-    w_wait, w_held = seconds["waiter"]
-    assert h_wait < 0.1 and 0.3 <= h_held < 1.0
-    assert 0.2 <= w_wait < 1.0 and w_held < 0.1
-    assert lk.thread_seconds() == (0.0, 0.0)
+        assert c["seconds"] > 0.0
 
 
 def test_forward_ad_from_many_threads():
-    """Forward-mode autodiff (undistortion's Newton Jacobians here, BA's
-    and PnP's Jacobians in the cluster threads) run from 16 threads at once
-    with a short switch interval gives the serial results: torch keeps the
-    dual level process-wide, and `util.forward_ad.lock` serializes it."""
+    """Undistortion's Newton Jacobians (reverse-mode vector-Jacobian
+    products, as BA's and PnP's Jacobians in the cluster threads) run from
+    16 threads at once with a short switch interval give the serial
+    results, with no lock: torch.func keeps its transforms per thread."""
     import sys
     import threading
 
@@ -567,3 +529,106 @@ def test_forward_ad_from_many_threads():
     assert not errors, errors[0]
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _ba_jacobians():
+    from colmap_tpu_torch.estimators import bundle_adjustment as tba
+
+    rng = np.random.default_rng(4)
+    P, M = 4, 40
+    poses = np.tile(np.array([1, 0, 0, 0, 0, 0, 0], np.float32), (P, 1))
+    poses[:, 4] = np.arange(P) * 0.3
+    X = rng.uniform(-1, 1, (M, 3)).astype(np.float32)
+    X[:, 2] += 5
+    pi, xi = np.meshgrid(np.arange(P), np.arange(M), indexing="ij")
+    pi, xi = pi.ravel(), xi.ravel()
+    xy = rng.uniform(0, 640, (len(pi), 2)).astype(np.float32)
+    cams = tmodels.pad_params([500.0, 320.0, 240.0, 0.01])[None]
+    problem = tba.make_problem(poses, cams, X, pi, np.zeros_like(pi), xi, xy,
+                               device="cpu")
+    mid = int(tmodels.CameraModelId.SIMPLE_RADIAL)
+    return lambda: tba._obs_residual_and_jac(problem, mid)
+
+
+def _pnp_refinement():
+    from colmap_tpu_torch.estimators import absolute_pose as tap
+
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(rng.uniform(-1, 1, (3, 50, 3)).astype(np.float32)
+                        + np.array([0, 0, 5], np.float32))
+    uv = X[..., :2] / X[..., 2:] + torch.as_tensor(
+        rng.normal(0, 1e-3, (3, 50, 2)).astype(np.float32))
+    start = torch.tensor([[1.0, 0.01, -0.02, 0.01, 0.05, -0.03, 0.1]] * 3)
+    w = torch.ones(3, 50)
+    return lambda: tap.gn_refine_pose(start, X, uv, w, num_iters=3)
+
+
+def _pose_graph():
+    rng = np.random.default_rng(6)
+    n = 5
+    init = np.zeros((n, 8), np.float32)
+    init[:, 0] = 1.0
+    init[:, 1] = 1.0
+    init[:, 5:8] = rng.normal(0, 1, (n, 3))
+    edges = np.array([(k, (k + 1) % n) for k in range(n)])
+    meas = np.zeros((n, 8), np.float32)
+    meas[:, 0] = np.exp(rng.normal(0, 0.05, n))
+    meas[:, 1] = 1.0
+    meas[:, 5:8] = rng.normal(0, 1, (n, 3))
+    return lambda: tpg.optimize_sim3_pose_graph(init, edges, meas,
+                                                num_iters=4, device="cpu")
+
+
+@pytest.mark.parametrize("make", [_ba_jacobians, _pnp_refinement,
+                                  _pose_graph],
+                         ids=["bundle_adjustment", "pnp", "pose_graph"])
+def test_jacobians_from_four_threads_match_serial(make):
+    """BA's Jacobians, PnP's Gauss-Newton refinement and the pose graph's
+    LM, each run from 4 threads at once with a short switch interval, give
+    the serial result: reverse-mode autodiff needs no lock."""
+    import sys
+    import threading
+
+    fn = make()
+    ref = fn()
+    out, errors = [None] * 4, []
+
+    def work(k):
+        try:
+            for _ in range(3):
+                out[k] = fn()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(4)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[0]
+    for got in out:
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            torch.testing.assert_close(torch.as_tensor(a), torch.as_tensor(b),
+                                       rtol=0, atol=0)
+
+
+def test_port_has_no_forward_mode_autodiff():
+    """No source file of the port calls forward-mode autodiff: torch keeps
+    its dual level process-wide, so it is not safe from the cluster
+    threads."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "colmap_tpu_torch"
+    hits = [f"{p.relative_to(root)}:{k + 1}"
+            for p in sorted(root.rglob("*.py"))
+            for k, line in enumerate(p.read_text().splitlines())
+            if any(w in line for w in ("jacfwd", ".jvp(", "forward_ad"))]
+    assert not hits, hits
+    assert not (root / "util" / "forward_ad.py").exists()
