@@ -3,7 +3,8 @@ dense mesh on one GPU.
 
     python3 chip_smoke.py
 
-Runs colmap_tpu_torch (never jax or colmap_tpu) on six cells. The DSLR
+Runs colmap_tpu_torch (never jax or colmap_tpu) on six cells and its
+command line. The DSLR
 cell is the repo's DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH
 (8192 features), one PINHOLE camera, exhaustive pairing (190 pairs in one
 block), then the incremental mapper. The VIDEO cell is the JAX package's
@@ -125,13 +126,34 @@ with Cartesian position priors. Phases:
    and x of pose 1), triangulate_points on the model with its points
    removed (>= 90% of them back at a mean reprojection <= 1 px) and
    register_images bringing 5 de-registered images back within 1 deg.
+12. [cli] (runs inside phase 4's scratch directory, after phase 5, on its
+   20 rendered images): colmap_tpu_torch.cli.main in this process with
+   --device cuda: database_creator, feature_extractor (PINHOLE, one
+   camera, the render's K, 8192 features), exhaustive_matcher (the launch
+   counter zeroed just before and read just after: at least one launch
+   per pair block), mapper, model_analyzer and model_converter to TXT;
+   project_generator, then exhaustive_matcher --project_path on a copy of
+   the database made before the first matcher run; feature_extractor with
+   affine shapes and domain-size pooling at 768 px on two of the images,
+   beside the default path on the same two, and the same command with
+   --device cpu on one of them; one api.absolute_pose_estimation on the
+   card. Prints each command's seconds, the launches and the peak device
+   memory. Held: the CLI's model, read back from disk, passes phase 5's
+   gates (20/20, 1 deg, 0.05 x room size); every image has >= 500
+   features; >= 98% of the card's affine + DSP keypoints within 0.01 px
+   of a CPU keypoint of the same orientation; the API pose within 0.1 deg
+   and 0.01 x room size of the model's; `python -m colmap_tpu_torch
+   model_analyzer` exits 0 in a subprocess, and another subprocess
+   imports colmap_tpu_torch.cli and .api with neither jax nor colmap_tpu
+   in sys.modules.
 
 The second-to-last line is the kernel report, one JSON object: its ms,
 plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
 `launches` the DSLR path's count; `shapes` holds all three shapes and
 `launches_by_path` every path's count (the dense cell's is its sparse
 stage's: PatchMatch, fusion and meshing are torch ops with no TPU kernel
-behind them; the rig and prior cells read no descriptors, so 0). The last
+behind them; the rig and prior cells read no descriptors, so 0; the cli
+path's is its first exhaustive_matcher run's). The last
 line is {"ok": true,
 "device": {...}}. Any failed check exits nonzero.
 """
@@ -141,6 +163,7 @@ import copy
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -152,7 +175,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from colmap_tpu_torch import (  # noqa: E402
-    bench_ba, bench_hierarchical, bench_rig, cuda_build)
+    api, bench_ba, bench_hierarchical, bench_rig, cli, cuda_build)
 from colmap_tpu_torch.bench_matcher import (  # noqa: E402
     bound_ms, cuda_ms, int_mm_ms, random_blocks)
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar  # noqa: E402
@@ -182,6 +205,7 @@ from colmap_tpu_torch.sensor import models as cam_models  # noqa: E402
 from colmap_tpu_torch.tools import rig_tools, sfm_tools  # noqa: E402
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 VIDEO_FRAMES = 100  # the JAX package's run has 1000; cut to fit the limit
 DENSE_IMAGES = 12
 
@@ -257,7 +281,7 @@ def main():
         del b1, b2, k, r, m_k
     report["max_abs_err"] = max_err
 
-    # ---- 4, 5. the DSLR main path
+    # ---- 4, 5. the DSLR main path, then 12. the command line on its images
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         main_path(work, report)
 
@@ -376,6 +400,196 @@ def main_path(work, report):
               pipe.stage_s.items(), key=lambda kv: -kv[1])))
     check_model("warm model", warm, gt, len(names), len(names), limit)
     db.close()
+
+    # ---- 12. the command line and the Python API on the same images
+    cli_path(work, report, names, K, Rs, ts, ropts)
+
+
+def _cli(args):
+    """One command through colmap_tpu_torch.cli.main in this process (so
+    the matcher's launch counter is readable); returns its seconds."""
+    t0 = time.perf_counter()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"[cli] {args[0]} exited {rc}")
+    phase(f"[cli] {args[0]} {secs:.3f} s")
+    return secs
+
+
+def _close_keypoints(a, b):
+    """Share of the keypoints of `a` within 0.01 px of a keypoint of `b`
+    with the same orientation (1e-2 rad)."""
+    d2 = ((a["xy"][:, None] - b["xy"][None]) ** 2).sum(-1)
+    dori = np.abs(np.angle(np.exp(1j * (a["ori"][:, None]
+                                         - b["ori"][None]))))
+    d2 = np.where(dori < 1e-2, d2, np.inf)
+    return float((np.sqrt(d2.min(1)) <= 0.01).mean())
+
+
+def _db_features(path):
+    from colmap_tpu_torch.features.sift import affine_to_keypoints
+
+    db = Database(path)
+    out = {}
+    for iid, im in db.read_images().items():
+        xy, _, ori = affine_to_keypoints(db.read_keypoints(iid))
+        out[im["name"]] = {"xy": xy, "ori": ori}
+    db.close()
+    return out
+
+
+def cli_path(work, report, names, K, Rs, ts, ropts):
+    """Phase 12: the DSLR cell's 20 images through the command line on the
+    card (database_creator, feature_extractor, exhaustive_matcher, mapper,
+    model_analyzer, model_converter, project_generator and a matcher run
+    from the project file), the SIFT variants through the command line,
+    and one absolute pose through the Python API."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    image_dir = os.path.join(work, "images")
+    db_path = os.path.join(work, "cli.db")
+    dev = ["--device", "cuda"]
+    params = ",".join(map(str, [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))
+    reader = ["--ImageReader.camera_model", "PINHOLE",
+              "--ImageReader.single_camera", "1",
+              "--ImageReader.camera_params", params]
+    _cli(["database_creator", "--database_path", db_path] + dev)
+    t_extract = _cli(["feature_extractor", "--database_path", db_path,
+                      "--image_path", image_dir,
+                      "--SiftExtraction.max_num_features", "8192"]
+                     + reader + dev)
+    copy_path = os.path.join(work, "cli_copy.db")
+    shutil.copy(db_path, copy_path)
+    hm.launches = 0
+    _cli(["exhaustive_matcher", "--database_path", db_path] + dev)
+    launches = hm.launches
+    report["launches_by_path"]["cli"] = launches
+    db = Database(db_path)
+    ids = {im["name"]: iid for iid, im in db.read_images().items()}
+    counts = [db.num_keypoints(ids[nm]) for nm in names]
+    n_blocks = sum(1 for _ in pairing.exhaustive_pairs(sorted(ids.values())))
+    phase(f"[cli] features per image: {counts}; verified pairs "
+          f"{db.num_verified_pairs()}; matcher kernel launches {launches} "
+          f"for {n_blocks} pair block(s)")
+    db.close()
+    if min(counts) < 500:
+        fail(f"[cli] too few features: {counts}")
+    if launches < n_blocks:
+        fail("[cli] exhaustive_matcher did not launch the matcher kernel "
+             "for every pair block")
+    sparse = os.path.join(work, "cli_sparse")
+    _cli(["mapper", "--database_path", db_path, "--output_path", sparse]
+         + dev)
+    model_dir = os.path.join(sparse, "0")
+    _cli(["model_analyzer", "--path", model_dir] + dev)
+    _cli(["model_converter", "--input_path", model_dir, "--output_path",
+          os.path.join(work, "cli_txt"), "--output_type", "TXT"] + dev)
+    rec = reconstruction_io.read_model(model_dir)
+    txt = reconstruction_io.read_model(os.path.join(work, "cli_txt"))
+    if txt.num_registered_images() != rec.num_registered_images():
+        fail("[cli] the TXT model differs from the binary one")
+    gt = gt_model(ids, names, K, Rs, ts, 1536, 1152)
+    limit = 0.05 * ropts.room_size
+    check_model("cli model", rec, gt, len(names), len(names), limit)
+
+    # the project file written and read back for a second matcher run
+    ini = os.path.join(work, "project.ini")
+    _cli(["project_generator", "--output_path", ini, "--database_path",
+          copy_path, "--image_path", image_dir,
+          "--SiftMatching.max_ratio", "0.8"] + reader + dev)
+    hm.launches = 0
+    _cli(["exhaustive_matcher", "--project_path", ini] + dev)
+    ini_launches = hm.launches
+    db = Database(copy_path)
+    n_ver = db.num_verified_pairs()
+    db.close()
+    phase(f"[cli] exhaustive_matcher from project.ini: {ini_launches} "
+          f"kernel launches, {n_ver} verified pairs")
+    if ini_launches < n_blocks or n_ver == 0:
+        fail("[cli] the matcher run from the project file did not match")
+
+    # the SIFT variants through the command line on two images at 768 px:
+    # the default path, affine shape + DSP on the card, and on the CPU
+    var_dir = os.path.join(work, "variant_images")
+    os.makedirs(var_dir)
+    for nm in names[:2]:
+        shutil.copy(os.path.join(image_dir, nm), var_dir)
+    one_dir = os.path.join(work, "variant_one")
+    os.makedirs(one_dir)
+    shutil.copy(os.path.join(image_dir, names[0]), one_dir)
+    variant = ["--SiftExtraction.estimate_affine_shape", "1",
+               "--SiftExtraction.domain_size_pooling", "1"]
+    runs = {}
+    for tag, images, extra in (("default", var_dir, dev),
+                               ("affine_dsp", var_dir, variant + dev),
+                               ("affine_dsp_cpu", one_dir,
+                                variant + ["--device", "cpu"])):
+        path = os.path.join(work, f"{tag}.db")
+        secs = _cli(["feature_extractor", "--database_path", path,
+                     "--image_path", images,
+                     "--SiftExtraction.max_image_size", "768"]
+                    + reader + extra)
+        runs[tag] = (secs, _db_features(path))
+    for tag, (secs, feats) in runs.items():
+        phase(f"[cli] {tag} extraction at 768 px: {secs:.3f} s for "
+              f"{len(feats)} images, features "
+              f"{[len(f['xy']) for f in feats.values()]}")
+    phase(f"[cli] default path at full size: {t_extract:.3f} s for "
+          f"{len(names)} images")
+    share = _close_keypoints(runs["affine_dsp"][1][names[0]],
+                             runs["affine_dsp_cpu"][1][names[0]])
+    phase(f"[cli] affine + DSP keypoints, card against CPU on {names[0]}: "
+          f"{share:.4f} within 0.01 px at the same orientation")
+    if share < 0.98:
+        fail("[cli] affine + DSP keypoints differ between card and CPU")
+
+    # one absolute pose through the Python API, against the CLI's model
+    iid = max(rec.registered_image_ids(),
+              key=lambda i: int((rec.images[i].point3D_ids >= 0).sum()))
+    im = rec.images[iid]
+    obs = np.nonzero(im.point3D_ids >= 0)[0]
+    xyz = np.stack([rec.points3D[int(im.point3D_ids[k])].xyz for k in obs])
+    t0 = time.perf_counter()
+    res = api.absolute_pose_estimation(im.xys[obs], xyz,
+                                       rec.cameras[im.camera_id],
+                                       device="cuda")
+    secs = time.perf_counter() - t0
+    ang = float(rot.quat_angle_deg(
+        torch.as_tensor(res["cam_from_world"][:4]),
+        torch.as_tensor(im.cam_from_world[:4])))
+    c_est = rigid3.projection_center(torch.as_tensor(res["cam_from_world"]))
+    c_dist = float(torch.linalg.norm(
+        c_est - torch.as_tensor(im.projection_center())))
+    phase(f"[cli] api.absolute_pose_estimation of image {iid}: "
+          f"{res['num_inliers']}/{len(obs)} inliers in {secs:.3f} s, "
+          f"{ang:.6f} deg and {c_dist:.6f} from the model's pose")
+    if not res["success"] or ang > 0.1 or c_dist > 0.01 * ropts.room_size:
+        fail("[cli] the API pose is not the model's")
+
+    # the module entry point and the isolation of cli / api, in subprocesses
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-m", "colmap_tpu_torch",
+                          "model_analyzer", "--path", model_dir],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO, env=env)
+    if res.returncode != 0 or "num_registered_images" not in res.stdout:
+        fail(f"[cli] python -m colmap_tpu_torch model_analyzer exited "
+             f"{res.returncode}: {res.stderr[-1000:]}")
+    res = subprocess.run([sys.executable, "-c", (
+        "import sys; import colmap_tpu_torch.cli, colmap_tpu_torch.api; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'colmap_tpu.')) or m == 'colmap_tpu']; "
+        "assert not bad, bad; print('isolated')")],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
+    if res.returncode != 0 or "isolated" not in res.stdout:
+        fail(f"[cli] cli / api import jax or colmap_tpu: {res.stderr[-1000:]}")
+    peak = torch.cuda.max_memory_allocated()
+    phase(f"[cli] python -m colmap_tpu_torch and the isolated import exit 0; "
+          f"peak device memory {peak} bytes ({peak / 2**30:.3f} GiB); "
+          f"phase {time.perf_counter() - t_phase:.3f} s")
 
 
 def video_path(work, report):

@@ -198,7 +198,9 @@ class MatchingStats:
 def _verify(generator, arrays: Dict[str, np.ndarray], opts, device):
     """Batched two-view verification of a block, in pair chunks."""
     B, mcap = arrays["mvalid"].shape
-    chunk = max(1, min(B, VERIFY_ELEMS // (opts.ransac.num_samples * mcap)))
+    # the H solver's sample of 4 has the largest budget of the three
+    hyps = opts.ransac.resolved_num_samples(4)
+    chunk = max(1, min(B, VERIFY_ELEMS // (hyps * mcap)))
     parts = []
     for s in range(0, B, chunk):
         t = {k: torch.as_tensor(v[s:s + chunk], device=device)

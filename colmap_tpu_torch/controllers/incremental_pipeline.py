@@ -55,6 +55,9 @@ class IncrementalPipelineOptions:
     ba_refine_extra_params: bool = True
     min_model_size: int = 3
     init_num_trials: int = 200
+    # flag parity with the JAX package, which declares it and never reads
+    # it either (colours come from the extract_colors tool)
+    extract_colors: bool = False
     # multi-model management (reference: multiple_models / max_num_models)
     multiple_models: bool = True
     max_num_models: int = 50

@@ -1,8 +1,10 @@
 """Similarity transform estimation and reconstruction alignment.
 
 Port of colmap_tpu/estimators/similarity_transform.py (estimate_sim3,
-align_reconstructions_via_proj_centers, compare_reconstructions;
-reference: estimators/similarity_transform.h, estimators/alignment.h).
+align_reconstructions_via_proj_centers, compare_reconstructions,
+estimate_translation, estimate_affine2d; reference:
+estimators/similarity_transform.h, estimators/alignment.h,
+translation_transform.h, affine_transform.h).
 """
 
 from __future__ import annotations
@@ -95,3 +97,29 @@ def compare_reconstructions(rec_test, rec_gt, device="cuda"):
         max_rotation_error_deg=max(rot_errors.values()),
         max_center_error=max(center_errors.values()),
     )
+
+
+def estimate_translation(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Pure translation dst ~= src + t of (..., N, D) point sets
+    (reference: translation_transform.h). Returns (..., D)."""
+    return torch.mean(dst - src, dim=-2)
+
+
+def estimate_affine2d(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Least-squares 2D affine dst ~= M [src; 1] of (..., N, 2) point sets
+    (reference: affine_transform.h). Returns M (..., 2, 3).
+
+    On the CPU this is torch.linalg.lstsq (rank-revealing, as the JAX
+    package's SVD-based lstsq). CUDA's lstsq has only the full-rank QR
+    driver, so on the card the 3x3 normal equations are solved in float64
+    and the result cast back."""
+    A = torch.cat([src, torch.ones(src.shape[:-1] + (1,), dtype=src.dtype,
+                                   device=src.device)], dim=-1)
+    if A.device.type == "cpu":
+        sol = torch.linalg.lstsq(A, dst).solution
+    else:
+        A64, d64 = A.double(), dst.double()
+        AtA = A64.transpose(-1, -2) @ A64
+        sol = torch.linalg.solve(AtA, A64.transpose(-1, -2) @ d64)
+        sol = sol.to(src.dtype)
+    return sol.transpose(-1, -2)

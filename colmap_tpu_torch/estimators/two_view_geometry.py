@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from colmap_tpu_torch.estimators import (
@@ -220,3 +221,51 @@ def recover_relative_pose(config, E, H, rays1, rays2, inlier_mask):
     med = torch.gather(a, 1, k[:, None])[:, 0]
     med = torch.where(torch.isfinite(med), med, torch.zeros_like(med))
     return pose, med
+
+
+def estimate_multiple_two_view_geometries(
+    generator: torch.Generator,
+    rays1: torch.Tensor,  # (N, 2) normalized camera coords of one pair
+    rays2: torch.Tensor,
+    pix1: torch.Tensor,  # (N, 2) pixel coords
+    pix2: torch.Tensor,
+    valid: torch.Tensor,  # (N,) bool
+    mean_focal: torch.Tensor,  # () geometric-mean focal of the two cams
+    options: TwoViewGeometryOptions,
+    max_models: int = 4,
+) -> Tuple[List[TwoViewGeometry], int]:
+    """Multi-model estimation of one pair (reference:
+    EstimateMultipleTwoViewGeometries, two_view_geometry.cc:235): estimate
+    a geometry, remove its inliers, and repeat until too few matches remain
+    or `max_models` were found. Returns the geometries (numpy, one pair
+    each) and the combined config (MULTIPLE when there is more than one).
+
+    A host loop over the batched estimator, as in the JAX package; each
+    round draws from a generator of its own, seeded from `generator`, as
+    the JAX package splits its key once a round."""
+    geometries: List[TwoViewGeometry] = []
+    cur_valid = valid.detach().cpu().numpy().astype(bool).copy()
+    dev = rays1.device
+    for _ in range(max_models):
+        if cur_valid.sum() < options.min_num_inliers:
+            break
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+        sub = torch.Generator(device=dev).manual_seed(seed)
+        g = estimate_two_view_geometry(
+            sub, rays1[None], rays2[None], pix1[None], pix2[None],
+            torch.as_tensor(cur_valid, device=dev)[None],
+            torch.as_tensor(mean_focal, dtype=rays1.dtype, device=dev)[None],
+            options)
+        g = TwoViewGeometry(*(x[0].cpu().numpy() for x in g))
+        if int(g.num_inliers) < options.min_num_inliers:
+            break
+        if int(g.config) in (int(TwoViewConfig.DEGENERATE),
+                             int(TwoViewConfig.UNDEFINED)):
+            break
+        geometries.append(g)
+        cur_valid &= ~g.inlier_mask
+    combined = (int(TwoViewConfig.MULTIPLE) if len(geometries) > 1
+                else (int(geometries[0].config) if geometries
+                      else int(TwoViewConfig.DEGENERATE)))
+    return geometries, combined

@@ -1,8 +1,9 @@
 """SIFT feature extraction in PyTorch.
 
-Port of colmap_tpu/features/sift.py, default path: window sampling, L1_ROOT
-descriptors, first_octave=-1. The stages are the JAX ones, written as eager
-torch ops on one image at a time:
+Port of colmap_tpu/features/sift.py: the default path (window sampling,
+L1_ROOT descriptors, first_octave=-1), affine shape estimation and
+domain-size pooling. The stages are the JAX ones, written as eager torch
+ops on one image at a time:
 
 - Gaussian scale space: separable blurs as banded matrix products (strip-
   blocked on long axes), computed level to level like VLFeat;
@@ -13,11 +14,15 @@ torch ops on one image at a time:
   JAX package samples gradients through per-keypoint windows and separable
   interpolation-weight matrices (an MXU formulation), the port gathers the
   same two window taps per axis and combines them with the same weights;
-  samples outside the window contribute zero in both.
+  samples outside the window contribute zero in both;
+- affine shape (covariant SIFT): a second-moment-matrix iteration per
+  keypoint warps the orientation and descriptor sample grids; domain-size
+  pooling (DSP-SIFT) averages the descriptor over `dsp_num_scales` window
+  scales. Either mode samples by element gathers, as in the JAX package,
+  whose fixed windows do not cover warped or scaled grids.
 
 The banded blurs and the histogram contractions are plain XLA in the JAX
-package (no Pallas kernel) and stay torch ops here. Affine shape estimation
-and domain-size pooling raise NotImplementedError (ROADMAP queue 1 item 2).
+package (no Pallas kernel) and stay torch ops here.
 """
 
 from __future__ import annotations
@@ -46,11 +51,20 @@ class SiftExtractionOptions:
     edge_threshold: float = 10.0
     max_num_orientations: int = 2
     normalization: str = "L1_ROOT"  # or "L2"
-    # not ported: setting either raises in check()
+    # affine-shape adaptation: a per-keypoint second-moment iteration
+    # normalizes anisotropic neighborhoods (reference: sift.h
+    # estimate_affine_shape, VLFeat covdet affine adaptation)
     estimate_affine_shape: bool = False
+    affine_shape_iterations: int = 3
+    # domain-size pooling (DSP-SIFT): average the descriptor over a range
+    # of window scales (reference: sift.h:90-93)
     domain_size_pooling: bool = False
+    dsp_min_scale: float = 1.0 / 6.0
+    dsp_max_scale: float = 3.0
+    dsp_num_scales: int = 10
     octave_capacity: int = 4096
-    sampling: str = "window"  # "window" or "gather"
+    # "window" or "gather"; affine shape and DSP always gather
+    sampling: str = "window"
     batch_size: int = 4
 
     def check(self):
@@ -58,10 +72,6 @@ class SiftExtractionOptions:
         assert self.max_num_orientations in (1, 2)
         assert self.normalization in ("L1_ROOT", "L2")
         assert self.sampling in ("window", "gather")
-        if self.estimate_affine_shape or self.domain_size_pooling:
-            raise NotImplementedError(
-                "SIFT affine shape / domain-size pooling: ROADMAP queue 1 "
-                "item 2")
 
 
 # --------------------------------------------------------------------------
@@ -391,6 +401,67 @@ def _window_vol2(grad_vol: torch.Tensor, lvl: torch.Tensor, fy: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# Affine shape adaptation (bulk)
+# --------------------------------------------------------------------------
+
+_SHAPE_GRID = 12
+
+
+def _sqrtm_inv_2x2_sym(a, b, d):
+    """Inverse square root of symmetric 2x2 [[a, b], [b, d]] (bulk),
+    normalized to unit determinant so the adapted shape keeps its area."""
+    tr = a + d
+    det = torch.clamp(a * d - b * b, min=1e-12)
+    s = torch.sqrt(det)
+    t = torch.sqrt(torch.clamp(tr + 2.0 * s, min=1e-12))
+    # sqrt(M) = (M + s I) / t; its inverse by the 2x2 adjugate
+    m00 = (a + s) / t
+    m01 = b / t
+    m11 = (d + s) / t
+    idet = 1.0 / torch.clamp(m00 * m11 - m01 * m01, min=1e-12)
+    i00 = m11 * idet
+    i01 = -m01 * idet
+    i11 = m00 * idet
+    nd = torch.sqrt(torch.clamp(i00 * i11 - i01 * i01, min=1e-12))
+    return i00 / nd, i01 / nd, i11 / nd
+
+
+def _affine_shapes_bulk(grad_flat, h, w, base, fy, fx, sigma,
+                        num_iters: int) -> torch.Tensor:
+    """Per-keypoint affine shape A [K, 2, 2] of unit determinant: the
+    second-moment matrix of nearest-sampled gradients on a 12x12 grid over
+    the 3-sigma disc, warped by the current A, inverted square root, and
+    composed into A, `num_iters` times (VLFeat covdet affine adaptation)."""
+    dev = fy.device
+    g = _SHAPE_GRID
+    lin = (np.arange(g, dtype=np.float32) + 0.5) / g * 2.0 - 1.0
+    uy, ux = np.meshgrid(lin, lin, indexing="ij")
+    unit = torch.as_tensor(np.stack([ux.reshape(-1), uy.reshape(-1)]),
+                           device=dev)  # [2, P] (x, y)
+    r2u = unit[0] ** 2 + unit[1] ** 2
+    win = torch.exp(-r2u / (2.0 * 0.5 ** 2))  # gaussian over the unit disc
+
+    k = fy.shape[0]
+    A = torch.eye(2, dtype=_F32, device=dev).expand(k, 2, 2)
+    wrad = 3.0 * sigma
+    for _ in range(num_iters):
+        off = torch.einsum("kij,jp->kip", A, unit) * wrad[:, None, None]
+        ys = fy[:, None] + off[:, 1, :]
+        xs = fx[:, None] + off[:, 0, :]
+        sgx, sgy = _nearest_vol2(grad_flat, h, w, base, ys, xs)
+        wxx = torch.sum(win[None] * sgx * sgx, dim=1)
+        wxy = torch.sum(win[None] * sgx * sgy, dim=1)
+        wyy = torch.sum(win[None] * sgy * sgy, dim=1)
+        norm = torch.clamp(wxx + wyy, min=1e-12)
+        i00, i01, i11 = _sqrtm_inv_2x2_sym(wxx / norm, wxy / norm,
+                                           wyy / norm)
+        Mi = torch.stack([torch.stack([i00, i01], -1),
+                          torch.stack([i01, i11], -1)], -2)  # [K, 2, 2]
+        A = torch.einsum("kij,kjl->kil", A, Mi)
+    return A
+
+
+# --------------------------------------------------------------------------
 # Orientation histograms (bulk)
 # --------------------------------------------------------------------------
 
@@ -399,10 +470,11 @@ _ORI_GRID = 16
 
 
 def _orientations_bulk(grad_flat, h, w, base, fy, fx, sigma, max_num: int,
-                       grad_vol=None, lvl=None):
+                       shape_A=None, grad_vol=None, lvl=None):
     """Dominant orientations of all keypoints: [K] inputs -> theta, valid
     [K, max_num]. 36-bin Gaussian-weighted histogram over the 3*1.5*sigma
-    window, circular box smoothing x6, parabolic peak interpolation."""
+    window (warped by the affine shapes `shape_A` [K, 2, 2] when given),
+    circular box smoothing x6, parabolic peak interpolation."""
     dev = fy.device
     g = _ORI_GRID
     lin = (np.arange(g, dtype=np.float32) + 0.5) / g * 2.0 - 1.0
@@ -413,8 +485,15 @@ def _orientations_bulk(grad_flat, h, w, base, fy, fx, sigma, max_num: int,
 
     wsig = 1.5 * sigma
     wrad = 3.0 * wsig
-    ys = fy[:, None] + unit[0][None, :] * wrad[:, None]
-    xs = fx[:, None] + unit[1][None, :] * wrad[:, None]
+    if shape_A is None:
+        dy = unit[0][None, :] * wrad[:, None]
+        dx = unit[1][None, :] * wrad[:, None]
+    else:
+        uv = torch.stack([unit[1], unit[0]])  # (x, y) rows
+        off = torch.einsum("kij,jp->kip", shape_A, uv) * wrad[:, None, None]
+        dx, dy = off[:, 0, :], off[:, 1, :]
+    ys = fy[:, None] + dy
+    xs = fx[:, None] + dx
     if grad_vol is not None and _win_eligible(h, w):
         sgx, sgy = _window_vol2(grad_vol, lvl, fy, fx, ys, xs, nearest=True)
     else:
@@ -492,10 +571,11 @@ _GRID = _descriptor_grid()
 
 
 def _descriptors_bulk(grad_flat, h, w, base, fy, fx, sigma, theta,
-                      grad_vol=None, lvl=None):
+                      shape_A=None, grad_vol=None, lvl=None):
     """128-D SIFT descriptors of all oriented keypoints ([K] inputs): a
     4x4x8 trilinear histogram over a 3-sigma-per-bin window, Gaussian
-    weighted, rotated to the keypoint frame."""
+    weighted, rotated to the keypoint frame and warped by the affine
+    shapes `shape_A` [K, 2, 2] when given."""
     dev = fy.device
     u_np, v_np, win_np, wyx_np = _GRID
     u = torch.as_tensor(u_np, device=dev)
@@ -505,6 +585,10 @@ def _descriptors_bulk(grad_flat, h, w, base, fy, fx, sigma, theta,
     ct, st = torch.cos(theta), torch.sin(theta)
     ox = sbp[:, None] * (ct[:, None] * u[None, :] - st[:, None] * v[None, :])
     oy = sbp[:, None] * (st[:, None] * u[None, :] + ct[:, None] * v[None, :])
+    if shape_A is not None:
+        off = torch.einsum("kij,kjp->kip", shape_A,
+                           torch.stack([ox, oy], dim=1))
+        ox, oy = off[:, 0, :], off[:, 1, :]
     ys = fy[:, None] + oy
     xs = fx[:, None] + ox
     if grad_vol is not None and _win_eligible(h, w):
@@ -572,13 +656,21 @@ def _extract_octave(gauss: torch.Tensor, octave_scale: float,
     grad_flat = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
     lvl = torch.clamp(torch.round(fs).to(torch.int64), 0, S + 2)
     lvl_base = lvl * (h * w)
-    grad_vol = (torch.stack([gx, gy], dim=-1) if opts.sampling == "window"
-                else None)
+    # the window path's fixed windows cover neither warped nor scaled
+    # sample grids: affine shapes and DSP sample by gathers
+    gather_only = opts.estimate_affine_shape or opts.domain_size_pooling
+    grad_vol = (torch.stack([gx, gy], dim=-1)
+                if opts.sampling == "window" and not gather_only else None)
+
+    shape_A = None
+    if opts.estimate_affine_shape:
+        shape_A = _affine_shapes_bulk(grad_flat, h, w, lvl_base, fy, fx,
+                                      sigma_oct, opts.affine_shape_iterations)
 
     max_ori = opts.max_num_orientations
     theta, tvalid = _orientations_bulk(grad_flat, h, w, lvl_base, fy, fx,
-                                       sigma_oct, max_ori, grad_vol=grad_vol,
-                                       lvl=lvl)
+                                       sigma_oct, max_ori, shape_A=shape_A,
+                                       grad_vol=grad_vol, lvl=lvl)
 
     k = fs.shape[0]
     n = k * max_ori
@@ -589,9 +681,25 @@ def _extract_octave(gauss: torch.Tensor, octave_scale: float,
     kp_fy, kp_fx, kp_sigma = rep(fy), rep(fx), rep(sigma_oct)
     kp_theta = theta.reshape(n)
     kp_valid = (tvalid & ok[:, None]).reshape(n)
-    kp_desc = _descriptors_bulk(grad_flat, h, w, rep(lvl_base), kp_fy, kp_fx,
-                                kp_sigma, kp_theta, grad_vol=grad_vol,
-                                lvl=rep(lvl))
+    kp_shape = None
+    if shape_A is not None:
+        kp_shape = shape_A[:, None].expand(k, max_ori, 2, 2).reshape(n, 2, 2)
+    if opts.domain_size_pooling:
+        # DSP-SIFT: the mean of the descriptors at each window scale
+        scales = np.linspace(opts.dsp_min_scale, opts.dsp_max_scale,
+                             opts.dsp_num_scales).astype(np.float32)
+        kp_desc = torch.zeros((n, _NBP * _NBP * _NBO), dtype=_F32,
+                              device=fy.device)
+        for s_fac in scales:
+            kp_desc = kp_desc + _descriptors_bulk(
+                grad_flat, h, w, rep(lvl_base), kp_fy, kp_fx,
+                kp_sigma * float(s_fac), kp_theta, shape_A=kp_shape)
+        kp_desc = kp_desc / len(scales)
+    else:
+        kp_desc = _descriptors_bulk(grad_flat, h, w, rep(lvl_base), kp_fy,
+                                    kp_fx, kp_sigma, kp_theta,
+                                    shape_A=kp_shape, grad_vol=grad_vol,
+                                    lvl=rep(lvl))
     return (kp_fx * octave_scale + coord_offset,
             kp_fy * octave_scale + coord_offset,
             kp_sigma * octave_scale, kp_theta, rep(resp), kp_valid, kp_desc)

@@ -1,6 +1,6 @@
 """Essential-matrix decomposition and pose recovery, batched.
 
-Port of colmap_tpu/geometry/essential.py (the pose-recovery half).
+Port of colmap_tpu/geometry/essential.py.
 """
 
 from __future__ import annotations
@@ -24,6 +24,15 @@ def decompose_essential_matrix(E: torch.Tensor):
     t = U[..., :, 2]
     t = t / (torch.linalg.norm(t, dim=-1, keepdim=True) + 1e-12)
     return R1, R2, t
+
+
+def essential_from_pose(cam2_from_cam1: torch.Tensor) -> torch.Tensor:
+    """E = [t]_x R from a relative pose (..., 7), t normalized (reference:
+    EssentialMatrixFromPose)."""
+    R = rot.quat_to_rotmat(rigid3.quat(cam2_from_cam1))
+    t = rigid3.trans(cam2_from_cam1)
+    t = t / (torch.linalg.norm(t, dim=-1, keepdim=True) + 1e-12)
+    return rot.cross_matrix(t) @ R
 
 
 def pose_from_essential_matrix(E: torch.Tensor, uv1: torch.Tensor,

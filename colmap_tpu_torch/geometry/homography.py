@@ -1,7 +1,6 @@
 """Homography decomposition (Malis-Vargas), batched.
 
-Port of colmap_tpu/geometry/homography.py (decomposition and pose
-recovery). The JAX version picks one of three normal-vector formulas with
+Port of colmap_tpu/geometry/homography.py. The JAX version picks one of three normal-vector formulas with
 lax.switch; here all three are built and the right one selected per batch
 element.
 """
@@ -13,6 +12,14 @@ import torch
 from colmap_tpu_torch.estimators.utils import svd
 from colmap_tpu_torch.geometry import rigid3, rotation as rot
 from colmap_tpu_torch.geometry.triangulation import triangulate_point
+
+
+def homography_from_pose(K1: torch.Tensor, K2: torch.Tensor,
+                         R: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
+                         d: torch.Tensor) -> torch.Tensor:
+    """H = K2 (R - t n^T / d) K1^-1 of the plane n.X = d, batched."""
+    return (K2 @ (R - t[..., :, None] @ n[..., None, :]
+                  / d[..., None, None]) @ torch.linalg.inv(K1))
 
 
 def _normalize_homography(H: torch.Tensor) -> torch.Tensor:

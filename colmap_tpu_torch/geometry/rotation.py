@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from colmap_tpu_torch.estimators.utils import eigh
+
 _EPS = 1e-12
 
 
@@ -154,6 +156,21 @@ def quat_slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     wa = torch.where(lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
     wb = torch.where(lerp, t, torch.sin(t * theta) / safe)
     return quat_normalize(wa * a + wb * b)
+
+
+def quat_average(qs: torch.Tensor,
+                 weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted quaternion average: the eigenvector of the largest
+    eigenvalue of sum(w q q^T), sign fixed to w >= 0 (reference:
+    geometry/pose.cc AverageQuaternions). qs (..., N, 4), weights (..., N)
+    or None; returns (..., 4)."""
+    if weights is None:
+        weights = torch.ones(qs.shape[:-1], dtype=qs.dtype, device=qs.device)
+    qs = quat_normalize(qs)
+    A = torch.einsum("...n,...ni,...nj->...ij", weights, qs, qs)
+    _, vecs = eigh(A)
+    q = vecs[..., :, -1]
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
 def cross_matrix(v: torch.Tensor) -> torch.Tensor:

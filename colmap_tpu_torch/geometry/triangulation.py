@@ -1,7 +1,8 @@
-"""Two-view point triangulation, batched over leading axes.
+"""Point triangulation, batched over leading axes.
 
-Port of the parts of colmap_tpu/geometry/triangulation.py that two-view
-geometry uses. Observations are normalized camera rays (u, v).
+Port of colmap_tpu/geometry/triangulation.py (reference:
+src/colmap/geometry/triangulation.h). Observations are normalized camera
+rays (u, v).
 """
 
 from __future__ import annotations
@@ -35,6 +36,29 @@ def triangulate_point(cam1_from_world: torch.Tensor,
                                     torch.full_like(w, 1e-12))
 
 
+def triangulate_multi_view(proj_matrices: torch.Tensor, uvs: torch.Tensor,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """N-view least-squares triangulation with an optional per-view mask.
+
+    proj_matrices (..., N, 3, 4); uvs (..., N, 2); mask (..., N) bool.
+    Accumulates the 4x4 normal equations over the views (each row pair
+    normalized, masked views weighted 0) and takes the smallest
+    eigenvector (reference: TriangulateMultiViewPoint). Returns (..., 3)."""
+    P = proj_matrices
+    r1 = uvs[..., 0:1] * P[..., 2, :] - P[..., 0, :]  # (..., N, 4)
+    r2 = uvs[..., 1:2] * P[..., 2, :] - P[..., 1, :]
+    A = torch.stack([r1, r2], dim=-2)  # (..., N, 2, 4)
+    A = A / (torch.linalg.norm(A, dim=-1, keepdim=True) + 1e-12)
+    if mask is not None:
+        A = A * mask[..., None, None].to(A.dtype)
+    AtA = torch.einsum("...nki,...nkj->...ij", A, A)
+    _, vecs = eigh(AtA)
+    X = vecs[..., :, 0]
+    w = X[..., 3:4]
+    return X[..., :3] / torch.where(torch.abs(w) > 1e-12, w,
+                                    torch.full_like(w, 1e-12))
+
+
 def calculate_triangulation_angle(center1: torch.Tensor,
                                   center2: torch.Tensor,
                                   point3d: torch.Tensor) -> torch.Tensor:
@@ -48,3 +72,9 @@ def calculate_triangulation_angle(center1: torch.Tensor,
                             / torch.clamp(denom, min=1e-24), -1.0, 1.0)
     angle = torch.arccos(cos_angle)
     return torch.minimum(angle, torch.pi - angle)
+
+
+def has_point_positive_depth(cam_from_world: torch.Tensor,
+                             point3d: torch.Tensor) -> torch.Tensor:
+    """Whether the point lies in front of the camera (z > 0), batched."""
+    return rigid3.apply(cam_from_world, point3d)[..., 2] > 0

@@ -9,6 +9,8 @@ leading axis B of `data` and `valid` is a batch of independent problems
 uses lax.scan, and the hypothesis sweep is split into chunks so that the
 (B, hypotheses, N) residuals stay within a memory budget.
 
+The support is the MSAC score or, when asked, the inlier count; the
+budget is fixed, or derived from the confidence as in the JAX package.
 `ransac` draws the samples from a torch.Generator and calls
 `ransac_from_samples`, the deterministic core, which a test can feed the
 JAX package's sample indices.
@@ -17,6 +19,7 @@ JAX package's sample indices.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -27,19 +30,39 @@ SCORE_ELEMS = 1 << 26
 
 @dataclasses.dataclass(frozen=True)
 class RansacOptions:
-    """The fixed-budget subset of colmap_tpu's RansacOptions that the
-    front end uses (MSAC support, a fixed number of samples)."""
+    """colmap_tpu's RansacOptions. The front end runs a fixed budget of
+    `num_samples` hypotheses with MSAC support; `num_samples=None` derives
+    the budget from the confidence at `min_inlier_ratio` (the reference's
+    adaptive bound), and `support="inlier_count"` scores a hypothesis by
+    its inlier count (reference: optim/support_measurement.h
+    InlierSupportMeasurer vs MEstimatorSupportMeasurer)."""
 
     max_error: float = 4.0
-    num_samples: int = 1024  # minimal samples (hypotheses) per problem
+    min_inlier_ratio: float = 0.25
+    confidence: float = 0.9999
+    num_samples: Optional[int] = 1024  # minimal samples (hypotheses) per problem
     lo_iterations: int = 3
+    max_num_trials: int = 65536
+    support: str = "msac"  # or "inlier_count"
+
+    def resolved_num_samples(self, sample_size: int) -> int:
+        if self.num_samples is not None:
+            return self.num_samples
+        # N = log(1 - conf) / log(1 - w^k) at the pessimistic inlier ratio,
+        # at least 64, at most max_num_trials, rounded up to a multiple of 64
+        w = self.min_inlier_ratio
+        p_good = max(w ** sample_size, 1e-12)
+        n = (math.log(max(1.0 - self.confidence, 1e-12))
+             / math.log(1.0 - p_good))
+        n = int(min(max(n, 64), self.max_num_trials))
+        return (n + 63) // 64 * 64
 
 
 class RansacResult(NamedTuple):
     model: torch.Tensor  # (B, ...) best model parameters
     inlier_mask: torch.Tensor  # (B, N) bool
     num_inliers: torch.Tensor  # (B,) int
-    score: torch.Tensor  # (B,) float (negated MSAC loss; higher better)
+    score: torch.Tensor  # (B,) float (negated MSAC loss or inlier count)
     success: torch.Tensor  # (B,) bool
 
 
@@ -85,11 +108,15 @@ def ransac_from_samples(
     model_valid = model_valid.reshape(B, -1)
     inf = torch.tensor(float("inf"), device=valid.device)
 
-    def score(r2, v):  # negated MSAC loss over the valid observations
+    def score(r2, v):
         r2 = torch.where(v, r2, inf)
+        inl = r2 < max_err2
+        if options.support == "inlier_count":
+            return inl.sum(-1).to(r2.dtype), inl
+        # negated MSAC loss over the valid observations
         s = torch.where(v, max_err2 - torch.clamp(r2, max=max_err2),
                         torch.zeros_like(r2)).sum(-1)
-        return s, r2 < max_err2
+        return s, inl
 
     # hypothesis sweep in chunks of the hypothesis axis
     n = valid.shape[1]
@@ -130,7 +157,8 @@ def ransac(generator: torch.Generator, solver: Callable,
            valid: torch.Tensor, sample_size: int,
            options: RansacOptions) -> RansacResult:
     """Batched (LO-)RANSAC: draw minimal samples, then the core."""
-    idx = draw_minimal_samples(generator, valid, options.num_samples,
+    idx = draw_minimal_samples(generator, valid,
+                               options.resolved_num_samples(sample_size),
                                sample_size)
     return ransac_from_samples(idx, solver, residual_fn, refit_fn, data,
                                valid, sample_size, options)

@@ -316,6 +316,32 @@ def cam_from_img(model_id: int, params: torch.Tensor,
     return uv
 
 
+def apply_model(fn_table, model_ids: torch.Tensor, params: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """Mixed-model dispatch over rows: row i gets fn_table[k](k, params[i],
+    x[i]) for its model id k. The rows are grouped by branch, each branch
+    runs once on its group and the results are scattered back. A branch is
+    chosen as the JAX package's lax.switch chooses it: the id's position
+    among the table's keys (searchsorted), clamped to the last branch.
+    model_ids (B,), params (B, P), x (B, ..., D)."""
+    keys = list(fn_table.keys())
+    key_ids = torch.as_tensor([int(k) for k in keys], device=model_ids.device)
+    branch = torch.clamp(torch.searchsorted(key_ids, model_ids.to(key_ids.dtype)),
+                         0, len(keys) - 1)
+    mid = (1,) * (x.dim() - 2)
+    out = None
+    for b, k in enumerate(keys):
+        rows = torch.nonzero(branch == b)[:, 0]
+        if rows.numel() == 0:
+            continue
+        p = params[rows].reshape((len(rows),) + mid + params.shape[1:])
+        y = fn_table[k](k, p, x[rows])
+        if out is None:
+            out = y.new_zeros((x.shape[0],) + y.shape[1:])
+        out = out.index_copy(0, rows, y)
+    return out
+
+
 def default_params(model_id: int, focal: float, width: int,
                    height: int) -> np.ndarray:
     """The padded (MAX_PARAMS,) float32 parameters of a new camera: the

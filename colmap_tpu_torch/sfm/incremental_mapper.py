@@ -84,6 +84,9 @@ class IncrementalMapperOptions:
     # registration batch: up to this many candidates PnP-register in one
     # batched device call per round (host decisions stay per-image)
     max_batch_size: int = 16
+    # flag parity with the JAX package, which declares it and never reads
+    # it either: host work is vectorized, not threaded
+    num_threads: int = -1
     # devices for global BA; only 1 is ported (ROADMAP queue 1 item 11)
     num_devices: int = 1
 

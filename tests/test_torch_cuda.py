@@ -7,7 +7,9 @@ CPU, the Sim3 pose graph and robust alignment on CUDA against the CPU, the
 hierarchical mapper on CUDA with three worker threads, PatchMatch,
 fusion, the splat and the cuFFT Poisson solve on CUDA against the CPU, the
 reverse-mode Jacobians of BA, PnP, the pose graph and undistortion, rig
-BA, prior BA and the BA covariances on CUDA against the CPU. Every test
+BA, prior BA and the BA covariances on CUDA against the CPU, the command
+line from pixels to a model on CUDA, and the affine + DSP SIFT variants
+on CUDA against the CPU. Every test
 needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
@@ -613,3 +615,47 @@ def test_covariance_cuda_matches_cpu(cuda):
         ba.BAProblem(*(x.to(cuda) for x in problem)), mid)
     for p, C in out[cuda].pose_covs.items():
         np.testing.assert_allclose(C, full[p, :, p, :], rtol=1e-2, atol=1e-8)
+
+
+def test_cli_cuda_end_to_end(cuda, tmp_path, capsys):
+    """feature_extractor -> exhaustive_matcher (the matcher kernel) ->
+    mapper -> model_analyzer through the command line on the card."""
+    from colmap_tpu_torch import cli
+
+    o = synth.RoomDatasetOptions(num_images=4, width=320, height=240,
+                                 focal=280.0, seed=5)
+    images, K, _, _ = synth.render_room_dataset(o)
+    synth.write_dataset(str(tmp_path / "images"), images)
+    params = ",".join(map(str, [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]))
+    common = ["--database_path", str(tmp_path / "db.db"), "--device", cuda]
+    assert cli.main(["feature_extractor", "--image_path",
+                     str(tmp_path / "images"), "--ImageReader.camera_model",
+                     "PINHOLE", "--ImageReader.single_camera", "1",
+                     "--ImageReader.camera_params", params] + common) == 0
+    before = hm.launches
+    assert cli.main(["exhaustive_matcher"] + common) == 0
+    assert hm.launches > before
+    assert cli.main(["mapper", "--output_path", str(tmp_path / "sparse")]
+                    + common) == 0
+    capsys.readouterr()
+    assert cli.main(["model_analyzer", "--path",
+                     str(tmp_path / "sparse" / "0")]) == 0
+    assert '"num_registered_images": 4' in capsys.readouterr().out
+
+
+def test_sift_variants_cuda_match_cpu(cuda):
+    """Affine shapes and domain-size pooling on the card against the CPU:
+    >= 98% of keypoints within 0.01 px at the same orientation."""
+    o = synth.RoomDatasetOptions(num_images=2, width=320, height=240,
+                                 focal=280.0, seed=5)
+    image = synth.render_room_dataset(o)[0][1]
+    opts = sift_mod.SiftExtractionOptions(estimate_affine_shape=True,
+                                          domain_size_pooling=True)
+    c = sift_mod.extract(image, opts, device="cpu")
+    g = sift_mod.extract(image, opts, device=cuda)
+    assert abs(len(g["xy"]) - len(c["xy"])) <= 0.02 * len(c["xy"])
+    d2 = ((g["xy"][:, None] - c["xy"][None]) ** 2).sum(-1)
+    dori = np.abs(np.angle(np.exp(1j * (g["orientation"][:, None]
+                                         - c["orientation"][None]))))
+    d2 = np.where(dori < 1e-2, d2, np.inf)
+    assert (np.sqrt(d2.min(1)) <= 0.01).mean() >= 0.98

@@ -185,9 +185,10 @@ def test_unported_paths_raise(tmp_path):
 def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
     """The port runs the VIDEO path pixels to model (sequential pairing,
     vocab-tree loop detection), imports the retrieval, pairing, GPS,
-    hierarchical-mapping, dense, rig, pose-prior and tool modules, solves
-    a small rig BA and clusters a synthetic database without importing jax
-    or colmap_tpu."""
+    hierarchical-mapping, dense, rig, pose-prior and tool modules, the
+    command line, the Python API, the option manager and the database
+    tools, solves a small rig BA and clusters a synthetic database without
+    importing jax or colmap_tpu."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -216,8 +217,14 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
             coordinate_frame, covariance, generalized_pose, pose_prior_ba,
             rig_bundle_adjustment)
         from colmap_tpu_torch.image import line
-        from colmap_tpu_torch.tools import (html_viewer, model_tools,
-                                           rig_tools, sfm_tools)
+        from colmap_tpu_torch.tools import (database_tools, html_viewer,
+                                           model_tools, rig_tools, sfm_tools)
+        from colmap_tpu_torch import api, cli
+        from colmap_tpu_torch.controllers import option_manager
+        from colmap_tpu_torch.util import timer
+        from colmap_tpu_torch.scene import visibility_pyramid
+        assert len(cli.COMMANDS) == 43
+        option_manager.OptionManager()
         rig_problem = rig_bundle_adjustment.make_rig_problem(
             [[1.0, 0, 0, 0, 0, 0, 0]] * 2, [[1.0, 0, 0, 0, 0, 0, 0]] * 2,
             [[100.0] + [0.0] * 11] * 2, [[0.0, 0, 5], [1, 0, 5]],

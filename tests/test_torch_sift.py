@@ -110,10 +110,3 @@ def test_prepare_u8_downscale_matches():
     assert (js, jh, jw) == (ts, th, tw) and jp.shape == tp.shape
     # antialiased resize, rounded to uint8: at most one level apart
     assert np.abs(jp.astype(int) - tp.astype(int)).max() <= 1
-
-
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        tsift.SiftExtractionOptions(estimate_affine_shape=True).check()
-    with pytest.raises(NotImplementedError):
-        tsift.SiftExtractionOptions(domain_size_pooling=True).check()
