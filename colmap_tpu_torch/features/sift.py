@@ -684,22 +684,15 @@ def _extract_octave(gauss: torch.Tensor, octave_scale: float,
     kp_shape = None
     if shape_A is not None:
         kp_shape = shape_A[:, None].expand(k, max_ori, 2, 2).reshape(n, 2, 2)
-    if opts.domain_size_pooling:
-        # DSP-SIFT: the mean of the descriptors at each window scale
-        scales = np.linspace(opts.dsp_min_scale, opts.dsp_max_scale,
-                             opts.dsp_num_scales).astype(np.float32)
-        kp_desc = torch.zeros((n, _NBP * _NBP * _NBO), dtype=_F32,
-                              device=fy.device)
-        for s_fac in scales:
-            kp_desc = kp_desc + _descriptors_bulk(
-                grad_flat, h, w, rep(lvl_base), kp_fy, kp_fx,
-                kp_sigma * float(s_fac), kp_theta, shape_A=kp_shape)
-        kp_desc = kp_desc / len(scales)
-    else:
-        kp_desc = _descriptors_bulk(grad_flat, h, w, rep(lvl_base), kp_fy,
-                                    kp_fx, kp_sigma, kp_theta,
+    # DSP-SIFT: the mean of the descriptors at each window scale
+    scales = (np.linspace(opts.dsp_min_scale, opts.dsp_max_scale,
+                          opts.dsp_num_scales).astype(np.float32)
+              if opts.domain_size_pooling else [1.0])
+    kp_desc = sum(_descriptors_bulk(grad_flat, h, w, rep(lvl_base), kp_fy,
+                                    kp_fx, kp_sigma * float(f), kp_theta,
                                     shape_A=kp_shape, grad_vol=grad_vol,
                                     lvl=rep(lvl))
+                  for f in scales) / len(scales)
     return (kp_fx * octave_scale + coord_offset,
             kp_fy * octave_scale + coord_offset,
             kp_sigma * octave_scale, kp_theta, rep(resp), kp_valid, kp_desc)
