@@ -110,9 +110,9 @@ def estimate_affine2d(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     (reference: affine_transform.h). Returns M (..., 2, 3).
 
     On the CPU this is torch.linalg.lstsq (rank-revealing, as the JAX
-    package's SVD-based lstsq). CUDA's lstsq has only the full-rank QR
-    driver, so on the card the 3x3 normal equations are solved in float64
-    and the result cast back."""
+    package's SVD-based lstsq). CUDA's lstsq solves full-rank systems by QR
+    (gels) only, so on the card the 3x3 normal equations are solved in
+    float64 and the result cast back."""
     A = torch.cat([src, torch.ones(src.shape[:-1] + (1,), dtype=src.dtype,
                                    device=src.device)], dim=-1)
     if A.device.type == "cpu":

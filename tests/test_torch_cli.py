@@ -15,12 +15,13 @@ Held:
   byte-equal to JAX's) and its ground-truth model: model_converter,
   model_cropper and model_splitter write byte-equal files, model_merger
   byte-equal cameras and images and the same points within 1e-4 (they
-  pass through a float32 robust Sim3, PR 8's merge tolerance);
-  model_transformer's model within 1e-5 (PR 8's tolerance);
+  pass through a float32 robust Sim3; tests/test_torch_model_tools.py's
+  merge tolerance);
+  model_transformer's model within 1e-5 (the same file's tolerance);
   model_analyzer prints the same numbers, model_comparer the same image
   count and centre error within 1e-5 and rotation error within 0.02 deg
-  (float32 arccos near 1, PR 8's tolerance);
-  point_triangulator's points within 1e-3 of JAX's (PR 8's tolerance);
+  (float32 arccos near 1, as there);
+  point_triangulator's points within 1e-3 of JAX's (as there);
 - database_creator, database_cleaner, database_merger, image_deleter,
   image_filterer and feature_importer leave the same rows in every table;
   matches_importer (which matches and verifies the imported pairs again)
@@ -294,7 +295,7 @@ def test_model_cropper_splitter_merger_byte_equal(gt_model, tmp_path):
     for name in ("cameras.bin", "images.bin"):
         assert ft[name] == fj[name], name
     # the merged points pass through the robust Sim3 of the two halves,
-    # float32 in both packages in another order (PR 8's merge tolerance)
+    # float32 in both packages in another order (test_torch_model_tools.py)
     rj = jrio.read_model(str(j / "merged"))
     rt = trio.read_model(str(t / "merged"))
     assert set(rt.points3D) == set(rj.points3D)
@@ -323,7 +324,7 @@ def test_model_transformer_and_comparer(gt_model, tmp_path, capsys):
                          "--input_path2", m] + extra) == 0
         outs.append(json.loads(capsys.readouterr().out))
     assert outs[1]["num_common_images"] == outs[0]["num_common_images"] == 8
-    # float32 arccos of |q.q'| near 1 resolves ~0.01 deg (PR 8's 0.02)
+    # float32 arccos of |q.q'| near 1 resolves ~0.01 deg
     assert abs(outs[1]["max_rotation_error_deg"]
                - outs[0]["max_rotation_error_deg"]) <= 0.02
     assert abs(outs[1]["max_proj_center_error"]

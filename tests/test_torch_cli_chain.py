@@ -5,10 +5,10 @@ model (the port with `--device cpu`, where its matcher kernel runs as its
 plain twin).
 
 Held:
-- keypoints and descriptors at PR 1's SIFT tolerances: per image >= 98% of
-  the port's keypoints within 0.01 px (and 1e-3 relative scale) of a JAX
-  keypoint of the same orientation, >= 98% of their descriptor bytes
-  equal and >= 99.9% within one level;
+- keypoints and descriptors at tests/test_torch_sift.py's tolerances:
+  per image >= 98% of the port's keypoints within 0.01 px (and 1e-3
+  relative scale) of a JAX keypoint of the same orientation, >= 98% of
+  their descriptor bytes equal and >= 99.9% within one level;
 - raw matches: >= 99.9% of the port's matches join the same two keypoints
   (by position, within 0.01 px) as a JAX match, over all pairs;
 - both models register all 6 images, rotations within 1 deg and centres

@@ -13,12 +13,13 @@ Tolerances (PERF.md, "Parity tolerances"):
   in a second-moment sum can move a sample to the next pixel; on nearly
   degenerate shapes (condition numbers of 1e3-1e10) the normalized
   inverse square root amplifies that into a different shape.
-- keypoints and descriptors on one 200x150 image, PR 1's bar: >= 98% of
-  the port's keypoints within 0.01 px of a JAX keypoint of the same
-  orientation (1e-2 rad) and scale (1e-3 relative); >= 98% of the
-  matched descriptors' bytes equal; within one uint8 level >= 99.9% of
-  them under domain-size pooling and >= 99.5% under affine shapes (the
-  diverged shapes above warp whole descriptors: measured 99.70%).
+- keypoints and descriptors on one 200x150 image, at the bar of
+  tests/test_torch_sift.py: >= 98% of the port's keypoints within 0.01 px
+  of a JAX keypoint of the same orientation (1e-2 rad) and scale (1e-3
+  relative); >= 98% of the matched descriptors' bytes equal; within one
+  uint8 level >= 99.9% of them under domain-size pooling and >= 99.5%
+  under affine shapes (the diverged shapes above warp whole descriptors:
+  measured 99.70%).
 """
 
 import dataclasses
