@@ -420,12 +420,17 @@ def _cli(args):
 
 def _close_keypoints(a, b):
     """Share of the keypoints of `a` within 0.01 px of a keypoint of `b`
-    with the same orientation (1e-2 rad)."""
+    with the same orientation (1e-2 rad), and the share of those matched
+    keypoints' descriptor bytes within one level of `b`'s."""
     d2 = ((a["xy"][:, None] - b["xy"][None]) ** 2).sum(-1)
     dori = np.abs(np.angle(np.exp(1j * (a["ori"][:, None]
                                          - b["ori"][None]))))
     d2 = np.where(dori < 1e-2, d2, np.inf)
-    return float((np.sqrt(d2.min(1)) <= 0.01).mean())
+    nn = d2.argmin(1)
+    close = np.sqrt(d2[np.arange(len(nn)), nn]) <= 0.01
+    da = a["desc"][close].astype(int)
+    db = b["desc"][nn[close]].astype(int)
+    return float(close.mean()), float((np.abs(da - db) <= 1).mean())
 
 
 def _db_features(path):
@@ -435,7 +440,8 @@ def _db_features(path):
     out = {}
     for iid, im in db.read_images().items():
         xy, _, ori = affine_to_keypoints(db.read_keypoints(iid))
-        out[im["name"]] = {"xy": xy, "ori": ori}
+        out[im["name"]] = {"xy": xy, "ori": ori,
+                           "desc": db.read_descriptors(iid)}
     db.close()
     return out
 
@@ -538,12 +544,15 @@ def cli_path(work, report, names, K, Rs, ts, ropts):
               f"{[len(f['xy']) for f in feats.values()]}")
     phase(f"[cli] default path at full size: {t_extract:.3f} s for "
           f"{len(names)} images")
-    share = _close_keypoints(runs["affine_dsp"][1][names[0]],
-                             runs["affine_dsp_cpu"][1][names[0]])
-    phase(f"[cli] affine + DSP keypoints, card against CPU on {names[0]}: "
-          f"{share:.4f} within 0.01 px at the same orientation")
+    share, desc_share = _close_keypoints(runs["affine_dsp"][1][names[0]],
+                                         runs["affine_dsp_cpu"][1][names[0]])
+    phase(f"[cli] affine + DSP, card against CPU on {names[0]}: keypoints "
+          f"{share:.4f} within 0.01 px at the same orientation, their "
+          f"descriptor bytes {desc_share:.4f} within one level")
     if share < 0.98:
         fail("[cli] affine + DSP keypoints differ between card and CPU")
+    if desc_share < 0.995:
+        fail("[cli] affine + DSP descriptors differ between card and CPU")
 
     # one absolute pose through the Python API, against the CLI's model
     iid = max(rec.registered_image_ids(),

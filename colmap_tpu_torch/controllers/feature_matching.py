@@ -198,8 +198,10 @@ class MatchingStats:
 def _verify(generator, arrays: Dict[str, np.ndarray], opts, device):
     """Batched two-view verification of a block, in pair chunks."""
     B, mcap = arrays["mvalid"].shape
-    # the H solver's sample of 4 has the largest budget of the three
-    hyps = opts.ransac.resolved_num_samples(4)
+    # the largest budget of the E, F and H solvers' minimal samples (a
+    # fixed budget is the same for all three; an adaptive one grows with
+    # the sample size, so F's 7 sets it)
+    hyps = max(opts.ransac.resolved_num_samples(k) for k in (4, 5, 7))
     chunk = max(1, min(B, VERIFY_ELEMS // (hyps * mcap)))
     parts = []
     for s in range(0, B, chunk):

@@ -109,17 +109,10 @@ def estimate_affine2d(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Least-squares 2D affine dst ~= M [src; 1] of (..., N, 2) point sets
     (reference: affine_transform.h). Returns M (..., 2, 3).
 
-    On the CPU this is torch.linalg.lstsq (rank-revealing, as the JAX
-    package's SVD-based lstsq). CUDA's lstsq solves full-rank systems by QR
-    (gels) only, so on the card the 3x3 normal equations are solved in
-    float64 and the result cast back."""
+    QR least squares (lstsq's gels driver, the one CUDA offers) on every
+    device. It assumes what the reference's estimator needs: at least
+    three points, not all on one line."""
     A = torch.cat([src, torch.ones(src.shape[:-1] + (1,), dtype=src.dtype,
                                    device=src.device)], dim=-1)
-    if A.device.type == "cpu":
-        sol = torch.linalg.lstsq(A, dst).solution
-    else:
-        A64, d64 = A.double(), dst.double()
-        AtA = A64.transpose(-1, -2) @ A64
-        sol = torch.linalg.solve(AtA, A64.transpose(-1, -2) @ d64)
-        sol = sol.to(src.dtype)
+    sol = torch.linalg.lstsq(A, dst, driver="gels").solution
     return sol.transpose(-1, -2)

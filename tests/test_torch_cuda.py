@@ -8,8 +8,8 @@ hierarchical mapper on CUDA with three worker threads, PatchMatch,
 fusion, the splat and the cuFFT Poisson solve on CUDA against the CPU, the
 reverse-mode Jacobians of BA, PnP, the pose graph and undistortion, rig
 BA, prior BA and the BA covariances on CUDA against the CPU, the command
-line from pixels to a model on CUDA, and the affine + DSP SIFT variants
-on CUDA against the CPU. Every test
+line from pixels to a model on CUDA, the affine + DSP SIFT variants
+and the least-squares affine fit on CUDA against the CPU. Every test
 needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
@@ -645,7 +645,9 @@ def test_cli_cuda_end_to_end(cuda, tmp_path, capsys):
 
 def test_sift_variants_cuda_match_cpu(cuda):
     """Affine shapes and domain-size pooling on the card against the CPU:
-    >= 98% of keypoints within 0.01 px at the same orientation."""
+    >= 98% of keypoints within 0.01 px at the same orientation, and the
+    matched keypoints' descriptor bytes within one level on >= 99.5% (the
+    affine bar of tests/test_torch_sift_variants.py)."""
     o = synth.RoomDatasetOptions(num_images=2, width=320, height=240,
                                  focal=280.0, seed=5)
     image = synth.render_room_dataset(o)[0][1]
@@ -658,4 +660,24 @@ def test_sift_variants_cuda_match_cpu(cuda):
     dori = np.abs(np.angle(np.exp(1j * (g["orientation"][:, None]
                                          - c["orientation"][None]))))
     d2 = np.where(dori < 1e-2, d2, np.inf)
-    assert (np.sqrt(d2.min(1)) <= 0.01).mean() >= 0.98
+    nn = d2.argmin(1)
+    close = np.sqrt(d2[np.arange(len(nn)), nn]) <= 0.01
+    assert close.mean() >= 0.98
+    dg = g["descriptors"][close].astype(int)
+    dc = c["descriptors"][nn[close]].astype(int)
+    assert (np.abs(dg - dc) <= 1).mean() >= 0.995
+
+
+def test_affine2d_cuda_matches_cpu(cuda):
+    """The batched least-squares affine fit (QR on both devices)."""
+    rng = np.random.default_rng(0)
+    src = rng.normal(0, 10, (5, 40, 2)).astype(np.float32)
+    M = np.array([[1.1, 0.2, 3.0], [-0.15, 0.9, -2.0]], np.float32)
+    dst = (src @ M[:, :2].T + M[:, 2]
+           + rng.normal(0, 0.01, src.shape)).astype(np.float32)
+    out = {d: st.estimate_affine2d(torch.as_tensor(src, device=d),
+                                   torch.as_tensor(dst, device=d)).cpu()
+           for d in ("cpu", cuda)}
+    np.testing.assert_allclose(out[cuda].numpy(), out["cpu"].numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(out["cpu"].numpy()[0], M, atol=1e-2)

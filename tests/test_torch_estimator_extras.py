@@ -12,6 +12,7 @@ generator, so it is held by outcome: the same number of models, each
 model's inlier mask agreeing with JAX's on >= 95% of the matches.
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -80,6 +81,54 @@ def test_resolved_num_samples_matches_jax():
                     assert n_t % 64 == 0 and 64 <= n_t <= trials + 63
     # a fixed budget is returned as it is
     assert TRansacOptions(num_samples=300).resolved_num_samples(5) == 300
+
+
+def test_verification_chunks_fit_the_adaptive_budget(monkeypatch):
+    """match_and_verify_blocks with the adaptive budget (num_samples=None):
+    each verification chunk holds F's 7-point budget, the largest of the
+    three solvers', within VERIFY_ELEMS, and the pairs still verify."""
+    from colmap_tpu_torch.controllers import feature_matching as fm
+    from colmap_tpu_torch.scene import synthetic as tsyn
+    from colmap_tpu_torch.scene.database import Database
+
+    db = Database(":memory:")
+    gt = tsyn.synthesize_dataset(tsyn.SyntheticDatasetOptions(
+        num_cameras=1, num_images=3, num_points3D=100, seed=0), db)
+    # the synthetic descriptors are random: give each track one descriptor,
+    # plus noise per observation, for the matcher to find
+    rng = np.random.default_rng(1)
+    desc = {iid: db.read_descriptors(iid) for iid in db.read_images()}
+    for p in gt.points3D.values():
+        d = rng.integers(20, 236, 128)
+        for iid, k in p.track:
+            desc[iid][k] = d + rng.integers(-8, 9, 128)
+    for iid, d in desc.items():
+        db.write_descriptors(iid, d)
+    ver = fm.FeatureMatchingOptions().verification
+    # a trial cap of 16384 keeps the three budgets apart (H 2368, E 9472,
+    # F 16384) at a quarter of the default cap's CPU time
+    opts = fm.FeatureMatchingOptions(verification=dataclasses.replace(
+        ver, ransac=dataclasses.replace(ver.ransac, num_samples=None,
+                                        max_num_trials=16384)))
+    budget = opts.verification.ransac.resolved_num_samples(7)
+    assert budget > opts.verification.ransac.resolved_num_samples(5) > (
+        opts.verification.ransac.resolved_num_samples(4))
+    # room for two pairs at 64 matches: F's budget binds, H's would not
+    monkeypatch.setattr(fm, "VERIFY_ELEMS", 2 * budget * 64)
+    chunks = []
+    estimate = fm.tvg.estimate_two_view_geometry
+
+    def spy(generator, rays1, *args, **kw):
+        chunks.append(tuple(rays1.shape[:2]))
+        return estimate(generator, rays1, *args, **kw)
+
+    monkeypatch.setattr(fm.tvg, "estimate_two_view_geometry", spy)
+    stats = fm.match_and_verify_blocks(db, [[(1, 2), (1, 3), (2, 3)]], opts,
+                                       device="cpu")
+    assert sum(c for c, _ in chunks) == 3
+    for c, mcap in chunks:
+        assert c == 1 or c * budget * mcap <= fm.VERIFY_ELEMS, (c, mcap)
+    assert stats.num_verified_pairs == 3
 
 
 def _line_problem(rng, n=120, inlier_ratio=0.6):
