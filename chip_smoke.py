@@ -3,8 +3,8 @@ dense mesh on one GPU.
 
     python3 chip_smoke.py
 
-Runs colmap_tpu_torch (never jax or colmap_tpu) on six cells and its
-command line. The DSLR
+Runs colmap_tpu_torch (never jax or colmap_tpu) on six cells, its
+command line and its multi-device slice. The DSLR
 cell is the repo's DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH
 (8192 features), one PINHOLE camera, exhaustive pairing (190 pairs in one
 block), then the incremental mapper. The VIDEO cell is the JAX package's
@@ -146,6 +146,25 @@ with Cartesian position priors. Phases:
    model_analyzer` exits 0 in a subprocess, and another subprocess
    imports colmap_tpu_torch.cli and .api with neither jax nor colmap_tpu
    in sys.modules.
+13. [multi] (after phase 11, on phase 4's database and phase 9's
+   workspace): a mesh of 4 shards on the card (virtual shards, several on
+   one card, when the machine has fewer cards; prints
+   torch.cuda.device_count() and whether the mesh is virtual). Each step
+   prints its seconds and peak device memory, with the launch counters
+   zeroed just before it: match_pair_blocks_sharded on phase 4's block
+   (190 pairs padded to 192, N=M=1024), held to the one-shard run bit for
+   bit and to phase 4's match rows, with >= 1 K1 launch on every shard
+   thread; match_exhaustive with num_devices=4 on a copy of phase 4's
+   database with its matches removed, held to phase 4's match rows and
+   phase 5's pair-rotation gate, >= 1 launch per shard; solve_distributed
+   at the [ba] size (bench_ba.build_problem: 500 poses, 300k
+   observations, 10 LM x 20 CG, tolerances 0) against the one-device
+   solve, final cost within 1e-3 relative, LM it/s of both printed; the
+   DSLR mapper with num_devices=4, held to phase 5's model gates with at
+   least one sharded global BA; run_patch_match_stereo with num_devices=2
+   at max_image_size 256 on phase 9's workspace, held to phase 9's depth
+   gates (every map written, >= 40% estimated, median distance to the
+   room < 0.03 x room size).
 
 The second-to-last line is the kernel report, one JSON object: its ms,
 plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
@@ -153,7 +172,9 @@ plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
 `launches_by_path` every path's count (the dense cell's is its sparse
 stage's: PatchMatch, fusion and meshing are torch ops with no TPU kernel
 behind them; the rig and prior cells read no descriptors, so 0; the cli
-path's is its first exhaustive_matcher run's). The last
+path's is its first exhaustive_matcher run's; the multi path's sums its
+sharded matching and its controller run, not the one-shard comparison).
+The last
 line is {"ok": true,
 "device": {...}}. Any failed check exits nonzero.
 """
@@ -179,20 +200,26 @@ from colmap_tpu_torch import (  # noqa: E402
 from colmap_tpu_torch.bench_matcher import (  # noqa: E402
     bound_ms, cuda_ms, int_mm_ms, random_blocks)
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar  # noqa: E402
+from colmap_tpu_torch.controllers import dense_reconstruction as dense  # noqa: E402
+from colmap_tpu_torch.controllers import feature_matching as fm  # noqa: E402
 from colmap_tpu_torch.controllers.incremental_pipeline import (  # noqa: E402
-    IncrementalPipeline)
+    IncrementalPipeline, IncrementalPipelineOptions)
 from colmap_tpu_torch.estimators import bundle_adjustment as ba  # noqa: E402
 from colmap_tpu_torch.estimators import covariance  # noqa: E402
 from colmap_tpu_torch.estimators import generalized_pose as gp  # noqa: E402
 from colmap_tpu_torch.estimators.similarity_transform import (  # noqa: E402
     compare_reconstructions)
 from colmap_tpu_torch.features import hopper_matcher as hm  # noqa: E402
+from colmap_tpu_torch.features import matching as matching_mod  # noqa: E402
 from colmap_tpu_torch.features import pairing  # noqa: E402
 from colmap_tpu_torch.geometry import rigid3  # noqa: E402
 from colmap_tpu_torch.geometry import rotation as rot  # noqa: E402
 from colmap_tpu_torch.geometry import sim3  # noqa: E402
 from colmap_tpu_torch.optim.ransac import RansacOptions  # noqa: E402
 from colmap_tpu_torch.mvs import depth_map, fusion  # noqa: E402
+from colmap_tpu_torch.parallel import distributed_ba as pdba  # noqa: E402
+from colmap_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from colmap_tpu_torch.parallel import sharded_matching as psm  # noqa: E402
 from colmap_tpu_torch.geometry.essential import (  # noqa: E402
     pose_from_essential_matrix)
 from colmap_tpu_torch.scene import reconstruction_io  # noqa: E402
@@ -281,9 +308,15 @@ def main():
         del b1, b2, k, r, m_k
     report["max_abs_err"] = max_err
 
+    # phases 4 and 9 leave their database and workspace here for phase 13
+    keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    dslr_dir = os.path.join(keep.name, "dslr")
+    dense_dir = os.path.join(keep.name, "dense")
+    os.makedirs(dslr_dir)
+    os.makedirs(dense_dir)
+
     # ---- 4, 5. the DSLR main path, then 12. the command line on its images
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        main_path(work, report)
+    dslr = main_path(dslr_dir, report)
 
     # ---- 6. one bundle adjustment at the JAX bench's size
     res = bench_ba.run()
@@ -311,8 +344,7 @@ def main():
     hierarchical_path(report)
 
     # ---- 9. the dense cell
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_") as work:
-        dense_path(work, report)
+    dense_cell = dense_path(dense_dir, report)
 
     # ---- 10. rig BA and generalized pose
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rig_") as work:
@@ -320,6 +352,10 @@ def main():
 
     # ---- 11. the pose-prior mapper and the SfM tools
     prior_path(report)
+
+    # ---- 13. the multi-device slice on a mesh of shards
+    multi_path(dslr, dense_cell, report)
+    keep.cleanup()
 
     phase(f"[smoke] {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [report]}), flush=True)
@@ -403,6 +439,8 @@ def main_path(work, report):
 
     # ---- 12. the command line and the Python API on the same images
     cli_path(work, report, names, K, Rs, ts, ropts)
+    return dict(db_path=os.path.join(opts.workspace_path, "database.db"),
+                names=names, ids=ids, Rs=Rs, gt=gt, limit=limit)
 
 
 def _cli(args):
@@ -759,6 +797,219 @@ def dense_path(work, report):
                 0.05 * ropts.room_size)
     check_dense(rec, gt, dense_dir, ropts.room_size)
     db.close()
+    return dict(rec=rec, gt=gt, dense_dir=dense_dir,
+                room_size=ropts.room_size)
+
+
+MULTI_SHARDS = 4  # phase 13's mesh: virtual shards on a one-card machine
+MULTI_PATCH_MATCH_SIZE = 256  # phase 13's PatchMatch max_image_size
+
+
+def _step(tag, t0):
+    """Print a phase 13 step's seconds and peak device memory."""
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    phase(f"[multi] {tag}: {time.perf_counter() - t0:.3f} s, peak device "
+          f"memory {peak} bytes ({peak / 2**30:.3f} GiB)")
+
+
+def _zero_counts():
+    hm.launches = 0
+    hm.launches_by_thread.clear()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _shard_launches(mesh, what):
+    """The K1 launches of each shard thread since `_zero_counts`; fails
+    unless every shard launched."""
+    per = [hm.launches_by_thread.get(f"shard-{k}", 0)
+           for k in range(mesh.size)]
+    phase(f"[multi] {what}: matcher kernel launches per shard {per}")
+    if min(per) < 1:
+        fail(f"{what}: a shard did not launch the matcher kernel")
+    return sum(per)
+
+
+def multi_path(dslr, dense_cell, report):
+    """Phase 13: the multi-device slice on a mesh of MULTI_SHARDS shards
+    (virtual shards when the machine has fewer cards): sharded matching of
+    phase 4's block, the matching controller, the pose-sharded BA at the
+    [ba] size, the DSLR mapper and round-robin PatchMatch."""
+    t_phase = time.perf_counter()
+    mesh = pmesh.make_mesh(MULTI_SHARDS, "cuda")
+    phase(f"[multi] torch.cuda.device_count() {torch.cuda.device_count()}; "
+          f"mesh of {mesh.size} shards on {mesh.num_distinct} card(s), "
+          f"virtual {mesh.virtual}")
+    launches = 0
+
+    # sharded matching of phase 4's block, padded to a multiple of the mesh
+    db = Database(dslr["db_path"])
+    img_ids = sorted(db.read_images())
+    block = next(iter(pairing.exhaustive_pairs(img_ids)))
+    desc = {i: db.read_descriptors(i) for i in img_ids}
+    cap = 1 << max(8, int(max(len(d) for d in desc.values()) - 1)
+                   .bit_length())
+    B = -(-len(block) // mesh.size) * mesh.size
+    d1 = np.zeros((B, cap, 128), np.uint8)
+    d2 = np.zeros_like(d1)
+    v1 = np.zeros((B, cap), bool)
+    v2 = np.zeros_like(v1)
+    for k, (a, b) in enumerate(block):
+        d1[k, :len(desc[a])], v1[k, :len(desc[a])] = desc[a], True
+        d2[k, :len(desc[b])], v2[k, :len(desc[b])] = desc[b], True
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = psm.match_pair_blocks_sharded(mesh, d1, d2, v1, v2)
+    _step(f"match_pair_blocks_sharded, {len(block)} pairs padded to {B}, "
+          f"N=M={cap}", t0)
+    launches += _shard_launches(mesh, "sharded matching")
+    one = psm.match_pair_blocks_sharded(pmesh.make_mesh(1, "cuda"), d1, d2,
+                                        v1, v2)
+    if not np.array_equal(out, one):
+        fail("sharded matching differs from the one-shard run")
+    for k, (a, b) in enumerate(block):
+        want = db.read_matches(a, b)
+        got = matching_mod.matches_to_pairs(out[k])
+        if not np.array_equal(got, want if want is not None
+                              else np.zeros((0, 2), np.uint32)):
+            fail(f"sharded matching of pair ({a}, {b}) differs from "
+                 "phase 4's matches")
+    phase(f"[multi] sharded indices equal the one-shard run bit for bit and "
+          f"phase 4's {sum(1 for p in block if db.read_matches(*p) is not None)}"
+          f" matched pairs")
+
+    # the matcher kernel against its plain twin at this path's launch
+    # shapes, on the same DSLR inputs: each shard's block of the sharded
+    # matcher, and the controller's last part (its parts hold
+    # ceil(pairs / shards) pairs, the last one fewer)
+    per, ctrl = B // mesh.size, -(-len(block) // mesh.size)
+    checks = [(slice(k * per, (k + 1) * per), mesh.devices[k])
+              for k in range(mesh.size)]
+    checks.append((slice((mesh.size - 1) * ctrl, len(block)),
+                   mesh.devices[-1]))
+    names = ("best", "second", "idx", "rev_best", "rev_idx")
+    for s, dev in checks:
+        b1 = psm._prepare(d1[s], v1[s], dev)
+        b2 = psm._prepare(d2[s], v2[s], dev)
+        k = hm.top2_fwd_rev(b1, b2)
+        r = hm._top2_fwd_rev_reference(b1, b2)
+        for name, a, b in zip(names, k, r):
+            if not torch.equal(a, b):
+                fail(f"[multi] kernel != twin for {name} at "
+                     f"B={s.stop - s.start} N=M={cap}: "
+                     f"{(a != b).float().mean().item()} of entries differ")
+        err = max(float((k[i] - r[i]).abs().max()) for i in (0, 1, 3))
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        twin = hm.select_from_top2(*r, b1.valid,
+                                   matching_mod.MatchingOptions())
+        if not np.array_equal(twin.cpu().numpy(), out[s]):
+            fail(f"[multi] sharded matches of pairs {s.start}-{s.stop - 1} "
+                 "differ from the twin's")
+        del b1, b2, k, r, twin
+    phase(f"[multi] kernel == twin bit for bit (all five outputs) and the "
+          f"sharded matches equal the twin's, at B="
+          f"{[s.stop - s.start for s, _ in checks]} N=M={cap} on the DSLR "
+          f"descriptors")
+
+    # the matching controller on a copy of phase 4's database
+    copy_path = dslr["db_path"] + ".multi.db"
+    shutil.copy(dslr["db_path"], copy_path)
+    cdb = Database(copy_path)
+    cdb.conn.execute("DELETE FROM matches")
+    cdb.conn.execute("DELETE FROM two_view_geometries")
+    cdb.commit()
+    _zero_counts()
+    t0 = time.perf_counter()
+    stats = fm.match_exhaustive(
+        cdb, fm.FeatureMatchingOptions(num_devices=mesh.size), device="cuda")
+    _step(f"match_exhaustive(num_devices={mesh.size}), {stats.num_pairs} "
+          f"pairs, {stats.num_verified_pairs} verified", t0)
+    launches += _shard_launches(mesh, "matching controller")
+    for a, b in block:
+        want, got = db.read_matches(a, b), cdb.read_matches(a, b)
+        if (want is None) != (got is None) or (
+                want is not None and not np.array_equal(want, got)):
+            fail(f"controller matches of ({a}, {b}) differ from phase 4's")
+    errors = pair_rotation_errors(cdb, dslr["ids"], dslr["names"], dslr["Rs"])
+    strong = {i for (a, b), (_, n_inl, _) in errors.items() if n_inl >= 100
+              for i in (a, b)}
+    worst = max(e for e, _, _ in errors.values())
+    phase(f"[multi] controller: match rows equal phase 4's; {len(errors)} "
+          f"verified pairs (phase 4: {db.num_verified_pairs()}), max rotation "
+          f"error {worst:.6f} deg; images in a pair with >= 100 inliers: "
+          f"{len(strong)}/{len(img_ids)}")
+    if worst > 1.0 or len(strong) != len(img_ids):
+        fail("the multi-device controller's verified pairs fail phase 5's "
+             "gate")
+    cdb.close()
+    db.close()
+    report["launches_by_path"]["multi"] = launches
+
+    # the pose-sharded BA at the [ba] size against the one-device solve
+    problem, _ = bench_ba.build_problem(500, 50_000, 6, 7, "cuda")
+    opts = ba.BAOptions(max_iterations=10, cg_iterations=20,
+                        function_tolerance=0.0, cg_tolerance=0.0,
+                        refine_intrinsics=False)
+    _zero_counts()
+    t0 = time.perf_counter()
+    single = ba.solve(problem, opts)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    _step("one-device solve", t0)
+    _zero_counts()
+    t0 = time.perf_counter()
+    state = pdba.solve_distributed(problem, opts, mesh)
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter() - t0
+    _step(f"solve_distributed on {mesh.size} shards", t0)
+    c1, cn = float(single.cost), float(state.cost)
+    phase(f"[multi] BA {int(problem.obs_xy.shape[0])} observations, "
+          f"{state.iteration} LM x 20 CG: cost {c1:.6f} (one device), "
+          f"{cn:.6f} ({mesh.size} shards), rel diff {abs(cn - c1) / c1:.3e}; "
+          f"LM it/s {single.iteration / t_single:.3f} (one device), "
+          f"{state.iteration / t_sharded:.3f} ({mesh.size} shards)")
+    if not abs(cn - c1) <= 1e-3 * c1 or state.iteration != 10:
+        fail("the sharded BA's cost is not within 1e-3 of one device's")
+    del problem, single, state
+
+    # the DSLR mapper with its global BAs sharded
+    db = Database(dslr["db_path"])
+    popts = IncrementalPipelineOptions()
+    popts.mapper.num_devices = mesh.size
+    pipe = IncrementalPipeline(db, popts, device="cuda")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rec = pipe.run()
+    _step("DSLR mapper, num_devices=4", t0)
+    bs = pipe.ba_stats
+    phase(f"[multi] mapper BA: {int(bs['gba_sharded_calls'])} sharded of "
+          f"{int(bs['gba_calls'])} global BAs, {int(bs['lba_calls'])} local; "
+          f"global solve {bs['gba_solve']:.3f} s")
+    check_model("multi-device mapper", rec, dslr["gt"], len(img_ids),
+                len(img_ids), dslr["limit"])
+    if bs["gba_sharded_calls"] < 1:
+        fail("the mapper ran no sharded global BA")
+    db.close()
+    del pipe
+
+    # round-robin PatchMatch on phase 9's workspace
+    ws = dense_cell["dense_dir"]
+    for sub in ("depth_maps", "normal_maps"):
+        for f in os.listdir(os.path.join(ws, "stereo", sub)):
+            os.remove(os.path.join(ws, "stereo", sub, f))
+    timings = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    dense.run_patch_match_stereo(ws, dense.PatchMatchStereoOptions(
+        num_devices=2, max_image_size=MULTI_PATCH_MATCH_SIZE),
+        device="cuda", timings=timings)
+    _step(f"run_patch_match_stereo(num_devices=2) at "
+          f"{MULTI_PATCH_MATCH_SIZE} px: {timings['maps']} maps, "
+          f"photometric {timings['photometric']:.3f} s, geometric "
+          f"{timings['geometric']:.3f} s", t0)
+    check_depth_maps(dense_cell["rec"], dense_cell["gt"], ws,
+                     dense_cell["room_size"], "multi")
+    phase(f"[multi] phase {time.perf_counter() - t_phase:.3f} s")
 
 
 def reprojection_errors(rec, device) -> torch.Tensor:
@@ -1099,14 +1350,14 @@ def prior_model_checks(rec, db, gt, device):
         fail("register_images: an image did not come back within 1 deg")
 
 
-def check_dense(rec, gt, dense_dir, s, device="cuda"):
-    """The dense cell's gates in the render's frame (the model aligned to
-    the ground truth `gt` by Sim3): every registered image has geometric
-    depth and normal maps with >= 40% of the pixels estimated, whose
+def check_depth_maps(rec, gt, dense_dir, s, tag, device="cuda"):
+    """Phase 9's depth gates: every registered image has geometric depth
+    and normal maps of one size with >= 40% of the pixels estimated, whose
     back-projected points lie within a median 0.03 x room size `s` of the
-    room's faces; fused.ply has >= 10,000 points, >= 70% within 0.05 s;
-    meshed-poisson.ply has > 500 vertices and faces, median vertex
-    distance < 0.08 s (tests/test_mvs.py:122-169)."""
+    room's faces in the render's frame (the model aligned to `gt` by Sim3).
+    Maps smaller than the undistorted camera (a `max_image_size` run) are
+    back-projected with its calibration scaled to their size. Returns the
+    face-distance function of model-frame points."""
     urec = reconstruction_io.read_model(os.path.join(dense_dir, "sparse"))
     to_gt = torch.as_tensor(compare_reconstructions(rec, gt,
                                                     device=device)["sim3"])
@@ -1135,7 +1386,9 @@ def check_dense(rec, gt, dense_dir, s, device="cuda"):
                  f"{depth.shape}")
         shares.append(float((depth > 0).mean()))
         ys, xs = np.nonzero(depth > 0)
-        fx, fy, cx, cy = urec.cameras[im.camera_id].params[:4]
+        cam = urec.cameras[im.camera_id]
+        sx, sy = depth.shape[1] / cam.width, depth.shape[0] / cam.height
+        fx, fy, cx, cy = cam.params[:4] * np.array([sx, sy, sx, sy])
         d = depth[ys, xs].astype(np.float64)
         Xc = np.stack([(xs + 0.5 - cx) / fx * d, (ys + 0.5 - cy) / fy * d, d],
                       -1)
@@ -1143,14 +1396,25 @@ def check_dense(rec, gt, dense_dir, s, device="cuda"):
         R = rot.quat_to_rotmat(q / torch.linalg.vector_norm(q)).numpy()
         points.append((Xc - im.cam_from_world[4:7]) @ R)
     dist = face_distance(np.concatenate(points))
-    phase(f"[dense] estimated share per depth map: min {min(shares):.4f}, "
+    phase(f"[{tag}] estimated share per depth map: min {min(shares):.4f}, "
           f"max {max(shares):.4f}; depth points' median distance to the "
           f"room {np.median(dist):.5f} (limit {0.03 * s:.3f})")
     if min(shares) < 0.4:
         fail(f"a depth map has only {min(shares):.4f} of its pixels")
     if not np.median(dist) < 0.03 * s:
         fail("the depth maps are not on the room's faces")
+    return face_distance
 
+
+def check_dense(rec, gt, dense_dir, s, device="cuda"):
+    """The dense cell's gates in the render's frame (the model aligned to
+    the ground truth `gt` by Sim3): every registered image has geometric
+    depth and normal maps with >= 40% of the pixels estimated, whose
+    back-projected points lie within a median 0.03 x room size `s` of the
+    room's faces; fused.ply has >= 10,000 points, >= 70% within 0.05 s;
+    meshed-poisson.ply has > 500 vertices and faces, median vertex
+    distance < 0.08 s (tests/test_mvs.py:122-169)."""
+    face_distance = check_depth_maps(rec, gt, dense_dir, s, "dense", device)
     cloud = fusion.read_ply(os.path.join(dense_dir, "fused.ply"))
     near = float((face_distance(cloud["xyz"]) < 0.05 * s).mean())
     phase(f"[dense] fused.ply: {len(cloud['xyz'])} points, {near:.4f} within "

@@ -20,7 +20,6 @@ import sys
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 
 def _setup_logging():
@@ -455,11 +454,9 @@ def run_patch_match_stereo(argv):
     args = parser.parse_args(argv)
     om.parse_args(args)
     from colmap_tpu_torch.controllers import dense_reconstruction as dense
+    from colmap_tpu_torch.parallel.mesh import resolve_num_devices
 
-    num_devices = args.num_devices
-    if num_devices == 0:  # all local devices
-        num_devices = (torch.cuda.device_count()
-                       if str(args.device).startswith("cuda") else 1)
+    num_devices = resolve_num_devices(args.num_devices, args.device)
     dense.run_patch_match_stereo(
         args.workspace_path,
         dense.PatchMatchStereoOptions(patch_match=om.PatchMatchStereo,

@@ -4,8 +4,9 @@ COLMAP-layout workspace.
 Port of colmap_tpu/controllers/dense_reconstruction.py (reference entry
 points: RunPatchMatchStereo exe/mvs.cc:78, RunStereoFuser :136,
 RunPoissonMesher :120, RunDelaunayMesher :41). Per-reference problems with
-'__auto__' source selection run one after another on `device`. Workspace
-layout (doc/format.rst:160-188):
+'__auto__' source selection run one after another on `device`, or round
+robin over a device mesh (`num_devices`). Workspace layout
+(doc/format.rst:160-188):
 
     workspace/
       images/               undistorted images
@@ -34,6 +35,8 @@ from colmap_tpu_torch.mvs import fusion as fusion_mod
 from colmap_tpu_torch.mvs import meshing as meshing_mod
 from colmap_tpu_torch.mvs import model as model_mod
 from colmap_tpu_torch.mvs import patch_match as pm
+from colmap_tpu_torch.parallel.mesh import (make_mesh, resolve_num_devices,
+                                            run_shards)
 from colmap_tpu_torch.scene import reconstruction_io
 from colmap_tpu_torch.sensor import bitmap as bitmap_mod
 
@@ -47,8 +50,8 @@ class PatchMatchStereoOptions:
     max_num_src_images: int = 8
     geom_consistency: bool = True  # second pass like the reference default
     max_image_size: int = -1
-    # the JAX package spreads problems over local devices; the port runs
-    # on one card (ROADMAP queue 1 item 11)
+    # problems round robin over this many shards (0 = every local card;
+    # reference: one worker thread per GPU, mvs/patch_match.cc:193-228)
     num_devices: int = 1
 
 
@@ -90,24 +93,34 @@ def run_patch_match_stereo(workspace_path: str,
     """Compute photometric (+ geometric) depth/normal maps for all images.
 
     The draws come from one torch.Generator on `device` seeded with
-    `seed`. `timings`, when a dict, gets the wall seconds of each pass
-    ("photometric", "geometric") and the number of maps per pass
+    `seed`. With `options.num_devices` > 1 (0 = every local card) the
+    problems go round robin over a mesh of that many shards (problem k of
+    the sorted images to shard k mod n, as the JAX package spreads them
+    over its devices), each shard on its own thread with a generator
+    seeded seed + rank. `timings`, when a dict, gets the wall seconds of
+    each pass ("photometric", "geometric") and the number of maps per pass
     ("maps")."""
-    if options.num_devices != 1:
-        raise NotImplementedError("multi-device PatchMatch: ROADMAP queue 1 "
-                                  "item 11")
+    n_dev = resolve_num_devices(options.num_devices, device)
+    mesh = make_mesh(n_dev, device) if n_dev > 1 else None
     model, images = _load_workspace(workspace_path, options.max_image_size)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    devices = mesh.devices if mesh is not None else (device,)
+    generators = []
+    for k, dev in enumerate(devices):
+        generators.append(torch.Generator(device=dev))
+        generators[-1].manual_seed(seed + k)
+    order = sorted(model.images.items())
 
-    def put(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                               device=device)
-
-    def solve_all(geom: bool, prior: Dict[int, np.ndarray]):
+    def solve_part(geom: bool, prior: Dict[int, np.ndarray], rank: int):
+        """The problems of shard `rank` on its device."""
+        dev, generator = devices[rank], generators[rank]
         depths, normals = {}, {}
         po = dataclasses.replace(options.patch_match, geom_consistency=geom)
-        for ref_id, im in sorted(model.images.items()):
+
+        def put(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                   device=dev)
+
+        for ref_id, im in order[rank::len(devices)]:
             srcs = model.src_images(ref_id, options.max_num_src_images)
             if not srcs:
                 logger.warning("image %d has no source images", ref_id)
@@ -139,6 +152,16 @@ def run_patch_match_stereo(workspace_path: str,
             logger.info("patch-match %s (%s): %.0f%% estimated",
                         im.name, "geom" if geom else "photo",
                         100.0 * float((depths[ref_id] > 0).mean()))
+        return depths, normals
+
+    def solve_all(geom: bool, prior: Dict[int, np.ndarray]):
+        if mesh is None:
+            return solve_part(geom, prior, 0)
+        depths, normals = {}, {}
+        for d, nm in run_shards(mesh, lambda g: solve_part(geom, prior,
+                                                           g.rank)):
+            depths.update(d)
+            normals.update(nm)
         return depths, normals
 
     t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Feature matching + geometric verification pipeline: pairs -> database.
 
-Port of the single-device path of colmap_tpu/controllers/feature_matching.py:
+Port of colmap_tpu/controllers/feature_matching.py:
 
 - each image's descriptors are prepared once into a device-resident pool
   (slot-addressed, FIFO eviction), and each pair block gathers both sides
@@ -13,7 +13,10 @@ Port of the single-device path of colmap_tpu/controllers/feature_matching.py:
   candidates gated by the epipolar constraint, both sides read from the
   pool at the pool's one capacity;
 - matches and verified geometries are written to SQLite, one transaction
-  per block.
+  per block;
+- with `num_devices` > 1 each block's pairs split over a device mesh, each
+  shard with its own pool and generator (unlike the JAX package, whose
+  multi-device branch matches without the pool).
 
 The strategies (exhaustive, sequential with loop detection, spatial,
 imported pairs, vocab tree, transitive) generate the pair blocks.
@@ -34,6 +37,8 @@ from colmap_tpu_torch.features import hopper_matcher
 from colmap_tpu_torch.features import matching as matching_mod
 from colmap_tpu_torch.features import pairing as pairing_mod
 from colmap_tpu_torch.features.sift import affine_to_keypoints
+from colmap_tpu_torch.parallel.mesh import (make_mesh, resolve_num_devices,
+                                            run_shards)
 from colmap_tpu_torch.retrieval import visual_index as vi_mod
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.sensor import models as camera_models
@@ -215,6 +220,88 @@ def _verify(generator, arrays: Dict[str, np.ndarray], opts, device):
     return tvg.TwoViewGeometry(*(np.concatenate(p) for p in zip(*parts)))
 
 
+class _Shard:
+    """One shard's matcher state: its device, its descriptor pool (grown
+    with the block capacity) and its verification generator."""
+
+    def __init__(self, device, seed: int):
+        self.device = device
+        self.pool: Optional[_DevicePool] = None
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(seed)
+
+
+@dataclasses.dataclass
+class _PartResult:
+    pair_matches: List[np.ndarray]
+    res: tvg.TwoViewGeometry
+    guided: Dict[int, np.ndarray]
+    pool_built: bool
+    match_s: float
+    verify_s: float
+
+
+def _match_and_verify_part(shard: _Shard, data: _ImageData, part, cap: int,
+                           options: FeatureMatchingOptions) -> _PartResult:
+    """Match, verify and (optionally) guide-match the pairs `part` on the
+    shard's device. Reads only images already in `data`'s cache and writes
+    nothing to the database, so shard threads may run it at once."""
+    t0 = time.perf_counter()
+    pool_built = shard.pool is None or shard.pool.cap < cap
+    if pool_built:
+        # the pool holds at least one block's images; slots beyond the
+        # database's image count would never be used
+        size = max(options.descriptor_pool_size, 2 * options.block_pairs)
+        shard.pool = _DevicePool(cap, pool_size=min(size, len(data.images)),
+                                 device=shard.device)
+    shard.pool.ensure([im for ab in part for im in ab], data)
+    midx = shard.pool.match_block(part, options.matching)
+    t_match = time.perf_counter()
+
+    # ---- per-pair correspondences (host) ----
+    pair_matches = []
+    for i in range(len(part)):
+        m = matching_mod.matches_to_pairs(midx[i])
+        pair_matches.append(m[: options.max_num_matches])
+
+    # ---- batched verification ----
+    mcap = max(16, max((len(m) for m in pair_matches), default=16))
+    mcap = int(2 ** np.ceil(np.log2(mcap)))
+    B = len(part)
+    arrays = {
+        "rays1": np.zeros((B, mcap, 2), np.float32),
+        "rays2": np.zeros((B, mcap, 2), np.float32),
+        "pix1": np.zeros((B, mcap, 2), np.float32),
+        "pix2": np.zeros((B, mcap, 2), np.float32),
+        "mvalid": np.zeros((B, mcap), bool),
+        "focal": np.ones(B, np.float32),
+        "sizes1": np.ones((B, 2), np.float32),
+        "sizes2": np.ones((B, 2), np.float32),
+    }
+    for i, ((a, b), m) in enumerate(zip(part, pair_matches)):
+        if len(m) == 0:
+            continue
+        da, db_ = data.get(a), data.get(b)
+        n = min(len(m), mcap)
+        arrays["rays1"][i, :n] = da["rays"][m[:n, 0]]
+        arrays["rays2"][i, :n] = db_["rays"][m[:n, 1]]
+        arrays["pix1"][i, :n] = da["xy"][m[:n, 0]]
+        arrays["pix2"][i, :n] = db_["xy"][m[:n, 1]]
+        arrays["mvalid"][i, :n] = True
+        arrays["focal"][i] = np.sqrt(da["focal"] * db_["focal"])
+        cam_a = data.cameras[data.images[a]["camera_id"]]
+        cam_b = data.cameras[data.images[b]["camera_id"]]
+        arrays["sizes1"][i] = (cam_a["width"], cam_a["height"])
+        arrays["sizes2"][i] = (cam_b["width"], cam_b["height"])
+    res = _verify(shard.generator, arrays, options.verification, shard.device)
+    t_verify = time.perf_counter()
+    guided = (_guided_matches(shard.pool, data, part, pair_matches, res,
+                              options, shard.device)
+              if options.guided_matching else {})
+    return _PartResult(pair_matches, res, guided, pool_built,
+                       t_match - t0, t_verify - t_match)
+
+
 def match_and_verify_blocks(
     database: Database,
     pair_blocks: Iterable[Sequence[Tuple[int, int]]],
@@ -223,107 +310,80 @@ def match_and_verify_blocks(
     device="cuda",
 ) -> MatchingStats:
     """Match + verify all pair blocks on `device` and persist matches and
-    two-view geometries."""
-    if options.num_devices != 1:
-        raise NotImplementedError("multi-device matching: ROADMAP queue 1 "
-                                  "item 11")
+    two-view geometries.
+
+    With `options.num_devices` > 1 (0 = every local card) each block's
+    pairs split into contiguous parts over a mesh of that many shards
+    (parallel/mesh.py): each shard matches its part from a descriptor pool
+    of its own and verifies it with a generator of its own (seeded
+    seed + rank), on its device and thread; the host then writes the
+    block's rows in pair order. The matches equal one device's; the
+    verification draws differ."""
     cameras = database.read_cameras()
     data = _ImageData(database, cameras)
     stats = MatchingStats()
-    pool: Optional[_DevicePool] = None
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    match_opts = options.matching
-    verify_opts = options.verification
+    n_dev = resolve_num_devices(options.num_devices, device)
+    mesh = make_mesh(n_dev, device) if n_dev > 1 else None
+    shards = ([_Shard(d, seed + k) for k, d in enumerate(mesh.devices)]
+              if mesh is not None else [_Shard(device, seed)])
 
     for block in pair_blocks:
         block = list(block)
         if not block:
             continue
         # per-block pow2 capacity: the matcher's work is quadratic in it
+        # (this also loads every image of the block into data's cache
+        # before any shard thread reads it)
         t_block = time.perf_counter()
         n_max = max((len(data.get(im)["desc"]) for ab in block for im in ab),
                     default=1)
         cap = min(options.feature_capacity,
                   1 << max(8, int(n_max - 1).bit_length()))
-        if pool is None or pool.cap < cap:
-            # the pool holds at least one block's images; slots beyond the
-            # database's image count would never be used
-            size = max(options.descriptor_pool_size, 2 * options.block_pairs)
-            pool = _DevicePool(cap, pool_size=min(size, len(data.images)),
-                               device=device)
-            stats.pool_builds += 1
-        pool.ensure([im for ab in block for im in ab], data)
-        midx = pool.match_block(block, match_opts)
+        if mesh is None:
+            parts = [block]
+            results = [_match_and_verify_part(shards[0], data, block, cap,
+                                              options)]
+        else:
+            per = -(-len(block) // mesh.size)
+            parts = [block[k * per:(k + 1) * per] for k in range(mesh.size)]
+            results = run_shards(mesh, lambda g: (
+                _match_and_verify_part(shards[g.rank], data, parts[g.rank],
+                                       cap, options)
+                if parts[g.rank] else None))
+        done = [(p, r) for p, r in zip(parts, results) if r is not None]
         stats.num_pairs += len(block)
         stats.num_blocks += 1
-        t_match = time.perf_counter()
+        stats.pool_builds += sum(r.pool_built for _, r in done)
+        logger.info("pair block: %d pairs cap %d on %d shard(s) (match "
+                    "%.2fs, verify %.2fs, block %.2fs)", len(block), cap,
+                    len(shards), max(r.match_s for _, r in done),
+                    max(r.verify_s for _, r in done),
+                    time.perf_counter() - t_block)
 
-        # ---- per-pair correspondences (host) ----
-        pair_matches = []
-        for i, (a, b) in enumerate(block):
-            m = matching_mod.matches_to_pairs(midx[i])
-            if len(m) > options.max_num_matches:
-                m = m[: options.max_num_matches]
-            pair_matches.append(m)
-            if len(m) > 0:
-                database.write_matches(a, b, m)
-                stats.num_matched_pairs += 1
-
-        # ---- batched verification ----
-        mcap = max(16, max((len(m) for m in pair_matches), default=16))
-        mcap = int(2 ** np.ceil(np.log2(mcap)))
-        B = len(block)
-        arrays = {
-            "rays1": np.zeros((B, mcap, 2), np.float32),
-            "rays2": np.zeros((B, mcap, 2), np.float32),
-            "pix1": np.zeros((B, mcap, 2), np.float32),
-            "pix2": np.zeros((B, mcap, 2), np.float32),
-            "mvalid": np.zeros((B, mcap), bool),
-            "focal": np.ones(B, np.float32),
-            "sizes1": np.ones((B, 2), np.float32),
-            "sizes2": np.ones((B, 2), np.float32),
-        }
-        for i, ((a, b), m) in enumerate(zip(block, pair_matches)):
-            if len(m) == 0:
-                continue
-            da, db_ = data.get(a), data.get(b)
-            n = min(len(m), mcap)
-            arrays["rays1"][i, :n] = da["rays"][m[:n, 0]]
-            arrays["rays2"][i, :n] = db_["rays"][m[:n, 1]]
-            arrays["pix1"][i, :n] = da["xy"][m[:n, 0]]
-            arrays["pix2"][i, :n] = db_["xy"][m[:n, 1]]
-            arrays["mvalid"][i, :n] = True
-            arrays["focal"][i] = np.sqrt(da["focal"] * db_["focal"])
-            cam_a = cameras[data.images[a]["camera_id"]]
-            cam_b = cameras[data.images[b]["camera_id"]]
-            arrays["sizes1"][i] = (cam_a["width"], cam_a["height"])
-            arrays["sizes2"][i] = (cam_b["width"], cam_b["height"])
-        res = _verify(generator, arrays, verify_opts, device)
-        t_verify = time.perf_counter()
-        logger.info("pair block: %d pairs cap %d (match %.2fs, verify %.2fs)",
-                    len(block), cap, t_match - t_block, t_verify - t_match)
-        guided = (_guided_matches(pool, data, block, pair_matches, res,
-                                  options, device)
-                  if options.guided_matching else {})
-
-        for i, ((a, b), m) in enumerate(zip(block, pair_matches)):
-            ni = int(res.num_inliers[i])
-            if len(m) == 0 or ni < options.min_num_inliers:
-                continue
-            if int(res.config[i]) == int(tvg.TwoViewConfig.WATERMARK):
-                continue  # reference: watermark pairs are not used
-            if i in guided:
-                inlier_matches = guided[i]
-            else:
-                inlier_matches = m[res.inlier_mask[i][: len(m)]]
-            pose = res.cam2_from_cam1[i]
-            database.write_two_view_geometry(
-                a, b, inlier_matches, config=int(res.config[i]),
-                F=res.F[i], E=res.E[i], H=res.H[i],
-                qvec=pose[:4], tvec=pose[4:])
-            stats.num_verified_pairs += 1
-            stats.num_inlier_matches += len(inlier_matches)
+        for part, r in done:
+            for (a, b), m in zip(part, r.pair_matches):
+                if len(m) > 0:
+                    database.write_matches(a, b, m)
+                    stats.num_matched_pairs += 1
+        for part, r in done:
+            res = r.res
+            for i, ((a, b), m) in enumerate(zip(part, r.pair_matches)):
+                ni = int(res.num_inliers[i])
+                if len(m) == 0 or ni < options.min_num_inliers:
+                    continue
+                if int(res.config[i]) == int(tvg.TwoViewConfig.WATERMARK):
+                    continue  # reference: watermark pairs are not used
+                if i in r.guided:
+                    inlier_matches = r.guided[i]
+                else:
+                    inlier_matches = m[res.inlier_mask[i][: len(m)]]
+                pose = res.cam2_from_cam1[i]
+                database.write_two_view_geometry(
+                    a, b, inlier_matches, config=int(res.config[i]),
+                    F=res.F[i], E=res.E[i], H=res.H[i],
+                    qvec=pose[:4], tvec=pose[4:])
+                stats.num_verified_pairs += 1
+                stats.num_inlier_matches += len(inlier_matches)
 
         database.commit()
     return stats

@@ -29,6 +29,11 @@ match the CPU within a tolerance, not bit for bit.
 
 Gauge handling: per-dof float masks on poses, intrinsics and points; frozen
 dofs have their Jacobian columns zeroed and their updates masked.
+
+`compute_cost`, `lm_step`, `run_lm` and `init_state` take an optional
+shard group (JAX: `axis_name`); with one, the problem is one shard of a
+pose-sharded solve (parallel/distributed_ba.py). Without one (`None`, one
+device) the body is the single-device path.
 """
 
 from __future__ import annotations
@@ -110,6 +115,11 @@ def _obs_residual_and_jac(problem: BAProblem, model_id: int,
                                  point + dx, xy, model_id)
 
     r = _project_residual(poses, cams, points, problem.obs_xy, model_id)
+    if r.shape[0] == 0:  # a shard without observations: vmap needs a batch
+        def empty(k):
+            return torch.zeros((0, 2, k), dtype=r.dtype, device=r.device)
+
+        return r, empty(6), empty(12), empty(3)
     argnums = (0, 1, 2) if with_cam else (0, 2)
     z6 = torch.zeros(6, dtype=poses.dtype, device=poses.device)
     z12 = torch.zeros(12, dtype=poses.dtype, device=poses.device)
@@ -156,14 +166,24 @@ def _robust_cost(r2: torch.Tensor, loss: str, scale: float) -> torch.Tensor:
     raise ValueError(f"unknown loss {loss}")
 
 
-def compute_cost(problem: BAProblem, options: BAOptions) -> torch.Tensor:
-    """Total robust cost 0.5 * sum rho(||r||^2), a device scalar."""
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` summed over the shards of `group` (a parallel.mesh.ShardGroup);
+    `x` itself when there is none."""
+    return x if group is None else group.all_reduce_sum(x)
+
+
+def compute_cost(problem: BAProblem, options: BAOptions,
+                 group=None) -> torch.Tensor:
+    """Total robust cost 0.5 * sum rho(||r||^2), a device scalar (summed
+    over the shards of `group`, when given)."""
     r = _project_residual(problem.poses[problem.obs_pose_idx],
                           problem.cam_params[problem.obs_cam_idx],
                           problem.points[problem.obs_point_idx],
                           problem.obs_xy, options.camera_model_id)
     r2 = torch.sum(r * r, dim=-1) * problem.obs_weight
-    return 0.5 * torch.sum(_robust_cost(r2, options.loss, options.loss_scale))
+    return _sum(
+        0.5 * torch.sum(_robust_cost(r2, options.loss, options.loss_scale)),
+        group)
 
 
 # ---------------------------------------------------------------------------
@@ -208,8 +228,14 @@ class LMState(NamedTuple):
     syncs: int = 0  # device scalars read by the host to stop a loop
 
 
-def lm_step(state: LMState, options: BAOptions) -> LMState:
-    """One damped LM iteration. Returns the updated LMState."""
+def lm_step(state: LMState, options: BAOptions, group=None) -> LMState:
+    """One damped LM iteration. Returns the updated LMState.
+
+    With a `group` (parallel.mesh.ShardGroup) the problem is this shard's
+    pose block and its observations (local pose indices), with the cameras
+    and points replicated: point and camera reductions, the Schur matvec's
+    point and camera sums, the CG dot products and the cost are summed over
+    the shards, the pose blocks stay local (parallel/distributed_ba.py)."""
     problem = state.problem
     P = problem.poses.shape[0]
     C = problem.cam_params.shape[0]
@@ -240,8 +266,9 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
     eye6 = torch.eye(6, dtype=dt, device=dev)
 
     # ---- block reductions (N-major, segment sums) -------------------------
-    Hxx = _segsum(torch.einsum("nki,nkj->nij", Jx, Jx), xidx, M)
-    gx = _segsum(torch.einsum("nki,nk->ni", Jx, r), xidx, M)
+    Hxx = _sum(
+        _segsum(torch.einsum("nki,nkj->nij", Jx, Jx), xidx, M), group)
+    gx = _sum(_segsum(torch.einsum("nki,nk->ni", Jx, r), xidx, M), group)
     Hpp = _segsum(torch.einsum("nki,nkj->nij", Jp, Jp), pidx, P)
     gp = _segsum(torch.einsum("nki,nk->ni", Jp, r), pidx, P)
 
@@ -256,8 +283,10 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
     # inv_ex: no error check, so no host synchronization
     Hpp_prec_inv = torch.linalg.inv_ex(Hpp_prec)[0]
     if use_cam:
-        Hcc = _segsum(torch.einsum("nki,nkj->nij", Jc, Jc), cidx, C)
-        gc = _segsum(torch.einsum("nki,nk->ni", Jc, r), cidx, C)
+        Hcc = _sum(
+            _segsum(torch.einsum("nki,nkj->nij", Jc, Jc), cidx, C), group)
+        gc = _sum(
+            _segsum(torch.einsum("nki,nk->ni", Jc, r), cidx, C), group)
         dHcc = torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1), min=1e-6)
         eye12 = torch.eye(12, dtype=dt, device=dev)
         Hcc_prec_inv = torch.linalg.inv_ex(
@@ -268,14 +297,16 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
         a = torch.einsum("nki,ni->nk", Jp, u[0][pidx])  # (N, 2)
         if use_cam:
             a = a + torch.einsum("nki,ni->nk", Jc, u[1][cidx])
-        v = _segsum(torch.einsum("nki,nk->ni", Jx, a), xidx, M)  # (M, 3)
+        v = _sum(_segsum(torch.einsum("nki,nk->ni", Jx, a), xidx, M),
+                 group)  # (M, 3)
         wv = torch.einsum("mij,mj->mi", Hxx_inv, v)
         b = a - torch.einsum("nki,ni->nk", Jx, wv[xidx])
         out_pose = _segsum(torch.einsum("nki,nk->ni", Jp, b), pidx, P) \
             + lam * dHpp * u[0] + 1e-8 * u[0]
         if not use_cam:
             return (out_pose,)
-        out_cam = _segsum(torch.einsum("nki,nk->ni", Jc, b), cidx, C) \
+        out_cam = _sum(
+            _segsum(torch.einsum("nki,nk->ni", Jc, b), cidx, C), group) \
             + lam * dHcc * u[1] + 1e-8 * u[1]
         return out_pose, out_cam
 
@@ -284,7 +315,8 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
     t = torch.einsum("nki,ni->nk", Jx, hg[xidx])  # (N, 2)
     rhs = (-gp + _segsum(torch.einsum("nki,nk->ni", Jp, t), pidx, P),)
     if use_cam:
-        rhs += (-gc + _segsum(torch.einsum("nki,nk->ni", Jc, t), cidx, C),)
+        rhs += (-gc + _sum(
+            _segsum(torch.einsum("nki,nk->ni", Jc, t), cidx, C), group),)
 
     def precond(u):
         z_pose = torch.einsum("pij,pj->pi", Hpp_prec_inv, u[0])
@@ -294,9 +326,10 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
 
     def dot(a, b):
         out = torch.sum(a[0] * b[0])
-        if use_cam:
+        # the camera blocks are replicated: only the first shard adds them
+        if use_cam and (group is None or group.rank == 0):
             out = out + torch.sum(a[1] * b[1])
-        return out
+        return _sum(out, group)
 
     def axpy(alpha, a, b):
         return tuple(bi + alpha * ai for ai, bi in zip(a, b))
@@ -334,7 +367,8 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
     a = torch.einsum("nki,ni->nk", Jp, du_pose[pidx])
     if use_cam:
         a = a + torch.einsum("nki,ni->nk", Jc, x[1][cidx])
-    rhs_x = -gx - _segsum(torch.einsum("nki,nk->ni", Jx, a), xidx, M)
+    rhs_x = -gx - _sum(
+        _segsum(torch.einsum("nki,nk->ni", Jx, a), xidx, M), group)
     dx = torch.einsum("mij,mj->mi", Hxx_inv, rhs_x)
 
     # frozen dofs stay put even with numerical noise
@@ -347,7 +381,7 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
     if use_cam:
         trial = trial._replace(
             cam_params=problem.cam_params + x[1] * problem.cam_mask)
-    new_cost = compute_cost(trial, options)
+    new_cost = compute_cost(trial, options, group)
     cur_cost = state.cost
     accept = new_cost < cur_cost
     lam_new = torch.where(
@@ -369,11 +403,13 @@ def lm_step(state: LMState, options: BAOptions) -> LMState:
     )
 
 
-def run_lm(state: LMState, options: BAOptions) -> LMState:
+def run_lm(state: LMState, options: BAOptions, group=None) -> LMState:
     """The LM iteration loop. With function_tolerance > 0 it stops on an
     accepted step whose relative cost change is below the tolerance, on
     lambda saturation, or once the cost is below the tolerance (each test
-    is one host synchronization); otherwise it runs max_iterations."""
+    is one host synchronization); otherwise it runs max_iterations. With a
+    `group`, every shard runs it on its own block (see lm_step); the tests
+    read reduced values, so every shard stops at the same step."""
     tol = options.function_tolerance
     while state.iteration < options.max_iterations:
         if tol > 0:
@@ -382,12 +418,13 @@ def run_lm(state: LMState, options: BAOptions) -> LMState:
             state = state._replace(syncs=state.syncs + 1)
             if bool(converged):
                 break
-        state = lm_step(state, options)
+        state = lm_step(state, options, group)
     return state
 
 
-def init_state(problem: BAProblem, options: BAOptions) -> LMState:
-    cost0 = compute_cost(problem, options)
+def init_state(problem: BAProblem, options: BAOptions,
+               group=None) -> LMState:
+    cost0 = compute_cost(problem, options, group)
     return LMState(
         problem=problem,
         lam=torch.tensor(options.initial_lambda, dtype=problem.poses.dtype,

@@ -19,6 +19,7 @@ index on ties.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -34,8 +35,14 @@ SCRATCH_BYTES = 1 << 30
 MAX_GRID_Y = 65535  # pairs per launch: the pair axis is the grid's y axis
 
 launches = 0  # kernel launches (one per pair chunk), read by chip_smoke.py
+# the same launches by the name of the launching thread (the shard threads
+# of parallel/mesh.run_shards are "shard-<rank>")
+launches_by_thread: dict = {}
 
 _lib = None
+# shard threads (parallel/) build and launch at once: the first build and
+# the counter's read-modify-write are taken under this lock
+_lock = threading.Lock()
 
 
 def bind(lib):
@@ -50,10 +57,11 @@ def bind(lib):
 
 def _library():
     global _lib
-    if _lib is None:
-        from colmap_tpu_torch.cuda_build import load_library
+    with _lock:
+        if _lib is None:
+            from colmap_tpu_torch.cuda_build import load_library
 
-        _lib = bind(load_library("matcher_top2", ["matcher_top2.cu"]))
+            _lib = bind(load_library("matcher_top2", ["matcher_top2.cu"]))
     return _lib
 
 
@@ -103,20 +111,27 @@ def _top2_fwd_rev_kernel(b1: DescriptorBlock, b2: DescriptorBlock,
     pbest = torch.empty((chunk, n // TILE, m), dtype=f32, device=dev)
     pidx = torch.empty((chunk, n // TILE, m), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for s in range(0, B, chunk):
-        e = min(B, s + chunk)
+    # the launch goes to the calling thread's current device: make it the
+    # tensors' card (a shard thread on cuda:1 may have another current)
+    with torch.cuda.device(dev):
+        for s in range(0, B, chunk):
+            e = min(B, s + chunk)
 
-        def p(t):
-            return t[s:e].data_ptr()
+            def p(t):
+                return t[s:e].data_ptr()
 
-        err = lib.matcher_top2_fwd_rev(
-            p(b1.centered), p(b2.centered), p(b1.row_sum), p(b1.inv_norm),
-            p(b1.valid), p(b2.row_sum), p(b2.inv_norm), p(b2.valid),
-            e - s, n, m, p(best), p(second), p(idx), pbest.data_ptr(),
-            pidx.data_ptr(), p(rbest), p(ridx), stream)
-        if err != 0:
-            raise RuntimeError(f"matcher_top2 launch failed: cudaError {err}")
-        launches += 1
+            err = lib.matcher_top2_fwd_rev(
+                p(b1.centered), p(b2.centered), p(b1.row_sum),
+                p(b1.inv_norm), p(b1.valid), p(b2.row_sum), p(b2.inv_norm),
+                p(b2.valid), e - s, n, m, p(best), p(second), p(idx),
+                pbest.data_ptr(), pidx.data_ptr(), p(rbest), p(ridx), stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"matcher_top2 launch failed: cudaError {err}")
+            with _lock:
+                launches += 1
+                name = threading.current_thread().name
+                launches_by_thread[name] = launches_by_thread.get(name, 0) + 1
     return best, second, idx, rbest, ridx
 
 

@@ -41,6 +41,8 @@ from colmap_tpu_torch.geometry.triangulation import (
     triangulate_point,
 )
 from colmap_tpu_torch.optim.ransac import RansacOptions, ransac
+from colmap_tpu_torch.parallel import distributed_ba as dba
+from colmap_tpu_torch.parallel.mesh import make_mesh, resolve_num_devices
 from colmap_tpu_torch.scene.database_cache import DatabaseCache
 from colmap_tpu_torch.scene.reconstruction import (
     Point3D,
@@ -87,7 +89,9 @@ class IncrementalMapperOptions:
     # flag parity with the JAX package, which declares it and never reads
     # it either: host work is vectorized, not threaded
     num_threads: int = -1
-    # devices for global BA; only 1 is ported (ROADMAP queue 1 item 11)
+    # devices for global BA: > 1 shards every global BA of a model with at
+    # least that many images by pose over a device mesh
+    # (parallel/distributed_ba.py); 0 = every local card
     num_devices: int = 1
 
 
@@ -183,12 +187,14 @@ class IncrementalMapper:
     def __init__(self, cache: DatabaseCache,
                  options: IncrementalMapperOptions = IncrementalMapperOptions(),
                  seed: int = 0, device="cuda"):
-        if options.num_devices != 1:
-            raise NotImplementedError("multi-device BA: ROADMAP queue 1 "
-                                      "item 11")
         self.cache = cache
         self.options = options
         self.device = torch.device(device)
+        # global BAs shard over a mesh of this many shards, made at the
+        # first sharded solve; local BAs stay on `device`
+        self.num_shards = resolve_num_devices(options.num_devices,
+                                              self.device)
+        self._mesh = None
         # BA sub-timers and counters (seconds of the build / solve / apply
         # phases; calls, LM iterations, CG steps and host synchronizations
         # of local "lba_" and global "gba_" bundle adjustments), reported
@@ -1400,10 +1406,17 @@ class IncrementalMapper:
                     camera_models.CameraModelId(self.rec.cameras[cid].model_id)]
                 self.rec.cameras[cid].params = cam_params[k][:n]
 
-    def _solve(self, problem, options: ba.BAOptions, kind: str):
-        """BA solve with its counters kept in self.prof[kind + "_..."]."""
+    def _solve(self, problem, options: ba.BAOptions, kind: str,
+               mesh=None):
+        """BA solve with its counters kept in self.prof[kind + "_..."];
+        with a `mesh`, sharded by pose over it (counted in
+        kind + "_sharded_calls" too)."""
         t0 = time.perf_counter()
-        state = ba.solve(problem, options)
+        if mesh is None:
+            state = ba.solve(problem, options)
+        else:
+            state = dba.solve_distributed(problem, options, mesh)
+            self.prof[kind + "_sharded_calls"] += 1
         self.prof[kind + "_calls"] += 1
         self.prof[kind + "_lm_iters"] += state.iteration
         self.prof[kind + "_cg_steps"] += state.cg_steps
@@ -1487,7 +1500,14 @@ class IncrementalMapper:
         elif function_tolerance is not None:
             ba_options = dataclasses.replace(
                 ba_options, function_tolerance=float(function_tolerance))
-        state = self._solve(problem, ba_options, "gba")
+        # multi-device: the pose-sharded solver, once the model has an
+        # image for every shard (JAX: incremental_mapper.py:1680-1704)
+        mesh = None
+        if self.num_shards > 1 and len(all_imgs) >= self.num_shards:
+            if self._mesh is None:
+                self._mesh = make_mesh(self.num_shards, self.device)
+            mesh = self._mesh
+        state = self._solve(problem, ba_options, "gba", mesh)
         t0 = time.perf_counter()
         self._apply_ba_result(state, all_imgs, pids, cams,
                               update_intrinsics=refine_intrinsics)

@@ -9,7 +9,10 @@ fusion, the splat and the cuFFT Poisson solve on CUDA against the CPU, the
 reverse-mode Jacobians of BA, PnP, the pose graph and undistortion, rig
 BA, prior BA and the BA covariances on CUDA against the CPU, the command
 line from pixels to a model on CUDA, the affine + DSP SIFT variants
-and the least-squares affine fit on CUDA against the CPU. Every test
+and the least-squares affine fit on CUDA against the CPU, and the
+multi-device slice: sharded matching on four virtual shards of one card
+against one shard, the pose-sharded BA on the card against the CPU, and
+both on two real cards where the machine has them. Every test
 needs a CUDA device and the CUDA toolkit and skips without
 them. This file imports neither jax nor colmap_tpu, so it also runs on a
 machine without JAX:
@@ -43,6 +46,9 @@ from colmap_tpu_torch.mvs import fusion as fusion_mod
 from colmap_tpu_torch.mvs import meshing
 from colmap_tpu_torch.mvs import model as mvs_model
 from colmap_tpu_torch.mvs import patch_match as pm
+from colmap_tpu_torch.parallel import distributed_ba as dba
+from colmap_tpu_torch.parallel import mesh as pmesh
+from colmap_tpu_torch.parallel import sharded_matching as psm
 from colmap_tpu_torch.retrieval import kmeans as km
 from colmap_tpu_torch.retrieval import visual_index as vi_mod
 from colmap_tpu_torch.scene import synthetic as tsyn
@@ -681,3 +687,62 @@ def test_affine2d_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(out[cuda].numpy(), out["cpu"].numpy(),
                                atol=1e-5)
     np.testing.assert_allclose(out["cpu"].numpy()[0], M, atol=1e-2)
+
+
+def _sharded_matching_equals_one_shard(mesh):
+    rng = np.random.default_rng(11)
+    B, n = 8, 256
+    d1 = rng.integers(0, 200, (B, n, 128)).astype(np.uint8)
+    d2 = np.clip(d1[:, ::-1].astype(int) + rng.integers(-3, 4, (B, n, 128)),
+                 0, 255).astype(np.uint8)
+    v = np.ones((B, n), bool)
+    v[3, 100:] = False
+    hm.launches_by_thread.clear()
+    out = psm.match_pair_blocks_sharded(mesh, d1, d2, v, v)
+    for k in range(mesh.size):
+        assert hm.launches_by_thread.get(f"shard-{k}", 0) >= 1
+    one = psm.match_pair_blocks_sharded(pmesh.make_mesh(1, "cuda"), d1, d2,
+                                        v, v)
+    cpu = psm.match_pair_blocks_sharded(pmesh.make_mesh(1, "cpu"), d1, d2,
+                                        v, v)
+    np.testing.assert_array_equal(out, one)
+    np.testing.assert_array_equal(out, cpu)
+    assert (out[0] == np.arange(n)[::-1]).mean() > 0.9
+
+
+def _distributed_ba_matches_cpu(mesh):
+    # index_add_ sums in no fixed order on the card: a tolerance, not bits
+    problem, _ = bench_ba.build_problem(num_poses=41, num_points=3000,
+                                        obs_per_point=5, seed=3, device="cpu")
+    opts = ba.BAOptions(max_iterations=8, cg_iterations=20, loss="cauchy",
+                        refine_intrinsics=True)
+    cpu = ba.solve(problem, opts)
+    gpu = dba.solve_distributed(
+        ba.BAProblem(*(x.to("cuda") for x in problem)), opts, mesh)
+    assert gpu.cost.device.type == "cuda" and gpu.problem.poses.shape[0] == 41
+    assert float(gpu.cost) < 0.01 * float(ba.compute_cost(problem, opts))
+    np.testing.assert_allclose(float(gpu.cost), float(cpu.cost), rtol=1e-3)
+    np.testing.assert_allclose(gpu.problem.poses.cpu().numpy(),
+                               cpu.problem.poses.numpy(), atol=1e-4)
+
+
+def test_sharded_matching_on_four_virtual_shards(cuda):
+    mesh = pmesh.make_mesh(4, cuda)
+    assert mesh.num_distinct == min(4, torch.cuda.device_count())
+    _sharded_matching_equals_one_shard(mesh)
+
+
+def test_distributed_ba_cuda_matches_cpu(cuda):
+    _distributed_ba_matches_cpu(pmesh.make_mesh(4, cuda))
+
+
+def test_parallel_slice_on_two_cards(cuda):
+    """Shards on two distinct cards: the matcher launches on each shard's
+    own card (its thread's current device made the tensors' card) and the
+    collectives copy between cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = pmesh.make_mesh(2, cuda)
+    assert mesh.num_distinct == 2
+    _sharded_matching_equals_one_shard(mesh)
+    _distributed_ba_matches_cpu(mesh)

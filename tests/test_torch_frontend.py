@@ -168,27 +168,35 @@ def test_port_pixels_to_model(room):
     assert stages["mapping_ba"]["gba_calls"] >= 1
 
 
-def test_unported_paths_raise(tmp_path):
-    """Multi-device PatchMatch and matching raise (ROADMAP item 11); the
-    dense branch itself runs (tests/test_torch_fusion_meshing.py)."""
-    with pytest.raises(NotImplementedError):
+def test_unported_paths_raise(tmp_path, monkeypatch):
+    """The multi-device branches of matching and PatchMatch, which raised
+    until the parallel slice, run (tests/test_torch_parallel.py holds them
+    against one device and JAX): matching on two CPU shards goes through
+    an empty block list. What raises is a mesh asked for on the card where
+    there is none: no multi-device path falls back to the CPU."""
+    db = TDatabase(":memory:")
+    stats = tfm.match_and_verify_blocks(
+        db, [], tfm.FeatureMatchingOptions(num_devices=2), device="cpu")
+    assert stats.num_blocks == 0 and stats.num_pairs == 0
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfm.match_and_verify_blocks(
+            db, [], tfm.FeatureMatchingOptions(num_devices=2), device="cuda")
+    db.close()
+    with pytest.raises(RuntimeError, match="CUDA"):
         tdense.run_patch_match_stereo(
             str(tmp_path), tdense.PatchMatchStereoOptions(num_devices=2),
-            device="cpu")
-    db = TDatabase(":memory:")
-    with pytest.raises(NotImplementedError):
-        tfm.match_and_verify_blocks(
-            db, [], tfm.FeatureMatchingOptions(num_devices=2), device="cpu")
-    db.close()
+            device="cuda")
 
 
 def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
     """The port runs the VIDEO path pixels to model (sequential pairing,
     vocab-tree loop detection), imports the retrieval, pairing, GPS,
     hierarchical-mapping, dense, rig, pose-prior and tool modules, the
-    command line, the Python API, the option manager and the database
-    tools, solves a small rig BA and clusters a synthetic database without
-    importing jax or colmap_tpu."""
+    command line, the Python API, the option manager, the database tools
+    and the parallel modules, matches on two CPU shards, solves a small rig
+    BA and clusters a synthetic database without importing jax or
+    colmap_tpu."""
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
@@ -223,6 +231,15 @@ def test_port_imports_neither_jax_nor_colmap_tpu(tmp_path):
         from colmap_tpu_torch.controllers import option_manager
         from colmap_tpu_torch.util import timer
         from colmap_tpu_torch.scene import visibility_pyramid
+        from colmap_tpu_torch.parallel import (distributed_ba, mesh,
+                                               sharded_matching)
+        import numpy as np
+        d = np.random.default_rng(0).integers(0, 256, (2, 64, 128),
+                                              dtype=np.uint8)
+        v = np.ones((2, 64), bool)
+        m = sharded_matching.match_pair_blocks_sharded(
+            mesh.make_mesh(2, device="cpu"), d, d, v, v)
+        assert (m == np.arange(64)).all()
         assert len(cli.COMMANDS) == 43
         option_manager.OptionManager()
         rig_problem = rig_bundle_adjustment.make_rig_problem(

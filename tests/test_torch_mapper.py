@@ -35,10 +35,6 @@ from colmap_tpu_torch.estimators.similarity_transform import (
 from colmap_tpu_torch.scene import reconstruction_io as trio
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.scene.database_cache import DatabaseCache
-from colmap_tpu_torch.sfm.incremental_mapper import (
-    IncrementalMapper,
-    IncrementalMapperOptions,
-)
 
 torch.set_num_threads(2)
 
@@ -185,11 +181,24 @@ def test_snapshots_and_stage_report(runs, tmp_path):
 
 
 def test_multi_device_raises(runs):
-    path, _, _ = runs["clean"]
-    cache = DatabaseCache.create(Database(path), device="cpu")
-    opts = dataclasses.replace(IncrementalMapperOptions(), num_devices=2)
-    with pytest.raises(NotImplementedError):
-        IncrementalMapper(cache, opts, device="cpu")
+    """num_devices > 1, which raised until the parallel slice, shards every
+    global BA of a model with at least that many images over a mesh: the
+    pipeline on two CPU shards passes the clean case's gates with its
+    global BAs sharded (tests/test_torch_parallel.py holds eight shards)."""
+    path, gt, _ = runs["clean"]
+    _, max_rot, max_center, min_images = CASES["clean"]
+    db = Database(path)
+    opts = IncrementalPipelineOptions()
+    opts.mapper = dataclasses.replace(opts.mapper, num_devices=2)
+    pipe = IncrementalPipeline(db, opts, device="cpu")
+    rec = pipe.run()
+    db.close()
+    assert rec is not None and rec.num_registered_images() >= min_images
+    cmp = compare_reconstructions(rec, gt, device="cpu")
+    assert cmp["max_rotation_error_deg"] < max_rot, cmp["rotation_errors_deg"]
+    assert cmp["max_center_error"] < max_center, cmp["center_errors"]
+    assert pipe.ba_stats["gba_sharded_calls"] >= 1
+    assert pipe.ba_stats["gba_sharded_calls"] == pipe.ba_stats["gba_calls"]
 
 
 def test_native_helpers_match_jax():
