@@ -4,7 +4,7 @@ dense mesh on one GPU.
     python3 chip_smoke.py
 
 Runs colmap_tpu_torch (never jax or colmap_tpu) on six cells, its
-command line and its multi-device slice. The DSLR
+command line, its multi-device slice and its scale run. The DSLR
 cell is the repo's DSLR gate: 20 rendered 1536x1152 images, Quality.HIGH
 (8192 features), one PINHOLE camera, exhaustive pairing (190 pairs in one
 block), then the incremental mapper. The VIDEO cell is the JAX package's
@@ -147,24 +147,37 @@ with Cartesian position priors. Phases:
    imports colmap_tpu_torch.cli and .api with neither jax nor colmap_tpu
    in sys.modules.
 13. [multi] (after phase 11, on phase 4's database and phase 9's
-   workspace): a mesh of 4 shards on the card (virtual shards, several on
-   one card, when the machine has fewer cards; prints
-   torch.cuda.device_count() and whether the mesh is virtual). Each step
-   prints its seconds and peak device memory, with the launch counters
-   zeroed just before it: match_pair_blocks_sharded on phase 4's block
-   (190 pairs padded to 192, N=M=1024), held to the one-shard run bit for
-   bit and to phase 4's match rows, with >= 1 K1 launch on every shard
-   thread; match_exhaustive with num_devices=4 on a copy of phase 4's
-   database with its matches removed, held to phase 4's match rows and
-   phase 5's pair-rotation gate, >= 1 launch per shard; solve_distributed
-   at the [ba] size (bench_ba.build_problem: 500 poses, 300k
-   observations, 10 LM x 20 CG, tolerances 0) against the one-device
-   solve, final cost within 1e-3 relative, LM it/s of both printed; the
-   DSLR mapper with num_devices=4, held to phase 5's model gates with at
-   least one sharded global BA; run_patch_match_stereo with num_devices=2
-   at max_image_size 256 on phase 9's workspace, held to phase 9's depth
-   gates (every map written, >= 40% estimated, median distance to the
-   room < 0.03 x room size).
+   workspace): the direct sharded steps run on an explicit mesh of 4
+   virtual shards of card 0 (`Mesh([cuda:0] * 4)`); the entry points take
+   num_devices and run on the cards present, at most one shard per card
+   (`make_mesh`, as JAX slices its device list), so on one card they take
+   their one-device path. Prints torch.cuda.device_count(); each step
+   prints its shards and distinct devices, its seconds and peak device
+   memory, with the launch counters zeroed just before it:
+   match_pair_blocks_sharded on phase 4's block (190 pairs padded to 192,
+   N=M=1024), held to the one-shard run bit for bit and to phase 4's match
+   rows, with >= 1 K1 launch on every shard thread; match_exhaustive with
+   num_devices=4 on a copy of phase 4's database with its matches
+   removed, held to phase 4's match rows and phase 5's pair-rotation gate,
+   >= 1 launch per shard (per card); solve_distributed at the [ba] size
+   (bench_ba.build_problem: 500 poses, 300k observations, 10 LM x 20 CG,
+   tolerances 0) on the 4 virtual shards against the one-device solve,
+   final cost within 1e-3 relative, LM it/s of both printed; the DSLR
+   mapper with num_devices=4, held to phase 5's model gates, with at least
+   one sharded global BA on several cards and none on one;
+   run_patch_match_stereo with num_devices=2 at max_image_size 256 on
+   phase 9's workspace, held to phase 9's depth gates (every map written,
+   >= 40% estimated, median distance to the room < 0.03 x room size).
+14. [scale]: colmap_tpu_torch.scripts.scale_run.main in this process on
+   cuda, --mode incremental, at SCALE_IMAGES images with the script's
+   widths (20 points per image, each seen by 40 consecutive cameras,
+   chained matches of overlap 10, 0.5 px noise, seed 3; depth cut from
+   1000), snapshots every 200 images; the launch counter zeroed just
+   before and read just after (K1 is not on this path: it reads a match
+   database). Prints the synthesis and mapping seconds, the report's
+   stage_seconds (snapshots included), the BA counters and the peak
+   device memory. Held: return code 0 and the script's own gates, >= 95%
+   registered, rotation <= 1 deg, centre <= 0.05 after a Sim3 alignment.
 
 The second-to-last line is the kernel report, one JSON object: its ms,
 plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
@@ -173,7 +186,8 @@ plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
 stage's: PatchMatch, fusion and meshing are torch ops with no TPU kernel
 behind them; the rig and prior cells read no descriptors, so 0; the cli
 path's is its first exhaustive_matcher run's; the multi path's sums its
-sharded matching and its controller run, not the one-shard comparison).
+sharded matching and its controller run, not the one-shard comparison;
+the scale path reads a match database, so 0).
 The last
 line is {"ok": true,
 "device": {...}}. Any failed check exits nonzero.
@@ -356,6 +370,9 @@ def main():
     # ---- 13. the multi-device slice on a mesh of shards
     multi_path(dslr, dense_cell, report)
     keep.cleanup()
+
+    # ---- 14. the scale run, as its script runs it
+    scale_path(report)
 
     phase(f"[smoke] {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": [report]}), flush=True)
@@ -801,7 +818,9 @@ def dense_path(work, report):
                 room_size=ropts.room_size)
 
 
-MULTI_SHARDS = 4  # phase 13's mesh: virtual shards on a one-card machine
+# phase 13: the virtual shards of card 0 in the direct steps, and the
+# entry points' num_devices
+MULTI_SHARDS = 4
 MULTI_PATCH_MATCH_SIZE = 256  # phase 13's PatchMatch max_image_size
 
 
@@ -820,26 +839,37 @@ def _zero_counts():
 
 
 def _shard_launches(mesh, what):
-    """The K1 launches of each shard thread since `_zero_counts`; fails
-    unless every shard launched."""
-    per = [hm.launches_by_thread.get(f"shard-{k}", 0)
-           for k in range(mesh.size)]
+    """The K1 launches of each shard thread since `_zero_counts` (of the
+    calling thread where the mesh is one card: the callers' one-device
+    path); fails unless every shard launched."""
+    per = ([hm.launches] if mesh.size == 1 else
+           [hm.launches_by_thread.get(f"shard-{k}", 0)
+            for k in range(mesh.size)])
     phase(f"[multi] {what}: matcher kernel launches per shard {per}")
     if min(per) < 1:
         fail(f"{what}: a shard did not launch the matcher kernel")
     return sum(per)
 
 
+def _mesh_line(mesh):
+    return (f"{mesh.size} shard(s) on {mesh.num_distinct} distinct "
+            f"device(s) {sorted({str(d) for d in mesh.devices})}")
+
+
 def multi_path(dslr, dense_cell, report):
-    """Phase 13: the multi-device slice on a mesh of MULTI_SHARDS shards
-    (virtual shards when the machine has fewer cards): sharded matching of
-    phase 4's block, the matching controller, the pose-sharded BA at the
-    [ba] size, the DSLR mapper and round-robin PatchMatch."""
+    """Phase 13: the multi-device slice. The direct sharded steps (sharded
+    matching of phase 4's block, the pose-sharded BA at the [ba] size) run
+    on an explicit mesh of MULTI_SHARDS virtual shards of card 0; the entry
+    points (the matching controller, the DSLR mapper, round-robin
+    PatchMatch) take `num_devices` and run on the cards present, at most
+    one shard per card (one card: their one-device path)."""
     t_phase = time.perf_counter()
-    mesh = pmesh.make_mesh(MULTI_SHARDS, "cuda")
+    mesh = pmesh.Mesh([torch.device("cuda", 0)] * MULTI_SHARDS)
+    cards = pmesh.make_mesh(MULTI_SHARDS, "cuda")
     phase(f"[multi] torch.cuda.device_count() {torch.cuda.device_count()}; "
-          f"mesh of {mesh.size} shards on {mesh.num_distinct} card(s), "
-          f"virtual {mesh.virtual}")
+          f"direct steps: explicit mesh of {_mesh_line(mesh)}, virtual "
+          f"{mesh.virtual}; entry points with num_devices={MULTI_SHARDS}: "
+          f"{_mesh_line(cards)}")
     launches = 0
 
     # sharded matching of phase 4's block, padded to a multiple of the mesh
@@ -861,7 +891,7 @@ def multi_path(dslr, dense_cell, report):
     t0 = time.perf_counter()
     out = psm.match_pair_blocks_sharded(mesh, d1, d2, v1, v2)
     _step(f"match_pair_blocks_sharded, {len(block)} pairs padded to {B}, "
-          f"N=M={cap}", t0)
+          f"N=M={cap}, {_mesh_line(mesh)}", t0)
     launches += _shard_launches(mesh, "sharded matching")
     one = psm.match_pair_blocks_sharded(pmesh.make_mesh(1, "cuda"), d1, d2,
                                         v1, v2)
@@ -880,13 +910,14 @@ def multi_path(dslr, dense_cell, report):
 
     # the matcher kernel against its plain twin at this path's launch
     # shapes, on the same DSLR inputs: each shard's block of the sharded
-    # matcher, and the controller's last part (its parts hold
-    # ceil(pairs / shards) pairs, the last one fewer)
-    per, ctrl = B // mesh.size, -(-len(block) // mesh.size)
+    # matcher, and the controller's last part (on several cards its parts
+    # hold ceil(pairs / cards) pairs, the last one fewer; on one card it
+    # is the whole block)
+    per, ctrl = B // mesh.size, -(-len(block) // cards.size)
     checks = [(slice(k * per, (k + 1) * per), mesh.devices[k])
               for k in range(mesh.size)]
-    checks.append((slice((mesh.size - 1) * ctrl, len(block)),
-                   mesh.devices[-1]))
+    checks.append((slice((cards.size - 1) * ctrl, len(block)),
+                   cards.devices[-1]))
     names = ("best", "second", "idx", "rev_best", "rev_idx")
     for s, dev in checks:
         b1 = psm._prepare(d1[s], v1[s], dev)
@@ -921,10 +952,12 @@ def multi_path(dslr, dense_cell, report):
     _zero_counts()
     t0 = time.perf_counter()
     stats = fm.match_exhaustive(
-        cdb, fm.FeatureMatchingOptions(num_devices=mesh.size), device="cuda")
-    _step(f"match_exhaustive(num_devices={mesh.size}), {stats.num_pairs} "
-          f"pairs, {stats.num_verified_pairs} verified", t0)
-    launches += _shard_launches(mesh, "matching controller")
+        cdb, fm.FeatureMatchingOptions(num_devices=MULTI_SHARDS),
+        device="cuda")
+    _step(f"match_exhaustive(num_devices={MULTI_SHARDS}), {stats.num_pairs} "
+          f"pairs, {stats.num_verified_pairs} verified, {_mesh_line(cards)}",
+          t0)
+    launches += _shard_launches(cards, "matching controller")
     for a, b in block:
         want, got = db.read_matches(a, b), cdb.read_matches(a, b)
         if (want is None) != (got is None) or (
@@ -961,7 +994,7 @@ def multi_path(dslr, dense_cell, report):
     state = pdba.solve_distributed(problem, opts, mesh)
     torch.cuda.synchronize()
     t_sharded = time.perf_counter() - t0
-    _step(f"solve_distributed on {mesh.size} shards", t0)
+    _step(f"solve_distributed on {_mesh_line(mesh)}", t0)
     c1, cn = float(single.cost), float(state.cost)
     phase(f"[multi] BA {int(problem.obs_xy.shape[0])} observations, "
           f"{state.iteration} LM x 20 CG: cost {c1:.6f} (one device), "
@@ -972,23 +1005,28 @@ def multi_path(dslr, dense_cell, report):
         fail("the sharded BA's cost is not within 1e-3 of one device's")
     del problem, single, state
 
-    # the DSLR mapper with its global BAs sharded
+    # the DSLR mapper with its global BAs sharded over the cards present
     db = Database(dslr["db_path"])
     popts = IncrementalPipelineOptions()
-    popts.mapper.num_devices = mesh.size
+    popts.mapper.num_devices = MULTI_SHARDS
     pipe = IncrementalPipeline(db, popts, device="cuda")
     _zero_counts()
     t0 = time.perf_counter()
     rec = pipe.run()
-    _step("DSLR mapper, num_devices=4", t0)
+    _step(f"DSLR mapper, num_devices={MULTI_SHARDS}, {_mesh_line(cards)}",
+          t0)
     bs = pipe.ba_stats
     phase(f"[multi] mapper BA: {int(bs['gba_sharded_calls'])} sharded of "
           f"{int(bs['gba_calls'])} global BAs, {int(bs['lba_calls'])} local; "
           f"global solve {bs['gba_solve']:.3f} s")
     check_model("multi-device mapper", rec, dslr["gt"], len(img_ids),
                 len(img_ids), dslr["limit"])
-    if bs["gba_sharded_calls"] < 1:
-        fail("the mapper ran no sharded global BA")
+    # sharded global BAs on several cards; on one card none (the mesh holds
+    # the cards present, so num_devices=4 takes the one-device path)
+    if cards.size > 1 and bs["gba_sharded_calls"] < 1:
+        fail("the mapper ran no sharded global BA on several cards")
+    if cards.size == 1 and bs["gba_sharded_calls"] != 0:
+        fail("the mapper sharded its global BA on one card")
     db.close()
     del pipe
 
@@ -1004,12 +1042,58 @@ def multi_path(dslr, dense_cell, report):
         num_devices=2, max_image_size=MULTI_PATCH_MATCH_SIZE),
         device="cuda", timings=timings)
     _step(f"run_patch_match_stereo(num_devices=2) at "
-          f"{MULTI_PATCH_MATCH_SIZE} px: {timings['maps']} maps, "
+          f"{MULTI_PATCH_MATCH_SIZE} px, "
+          f"{_mesh_line(pmesh.make_mesh(2, 'cuda'))}: {timings['maps']} maps, "
           f"photometric {timings['photometric']:.3f} s, geometric "
           f"{timings['geometric']:.3f} s", t0)
     check_depth_maps(dense_cell["rec"], dense_cell["gt"], ws,
                      dense_cell["room_size"], "multi")
     phase(f"[multi] phase {time.perf_counter() - t_phase:.3f} s")
+
+
+SCALE_IMAGES = 300  # phase 14's depth: the script's 1000, cut to fit
+
+
+def scale_path(report):
+    """Phase 14: scripts.scale_run --mode incremental on the card, in this
+    process, at SCALE_IMAGES images and the script's widths."""
+    from colmap_tpu_torch.scripts import scale_run
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as work:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc = scale_run.main(["--num_images", str(SCALE_IMAGES), "--mode",
+                             "incremental", "--device", "cuda",
+                             "--workspace", work])
+        wall = time.perf_counter() - t0
+        launches = hm.launches
+        with open(os.path.join(work, "report.json")) as fp:
+            rep = json.load(fp)
+        snapshots = sorted(os.listdir(os.path.join(work, "snapshots"))) \
+            if os.path.isdir(os.path.join(work, "snapshots")) else []
+    report["launches_by_path"]["scale"] = launches
+    phase(f"[scale] scale_run --num_images {SCALE_IMAGES} --mode incremental:"
+          f" rc {rc} in {wall:.3f} s; {rep['gt_obs']} observations of "
+          f"{rep['gt_points']} points; synthesis {rep['synth_s']} s, mapping "
+          f"{rep['elapsed_s']} s; matcher kernel launches {launches}")
+    phase("[scale] stage seconds: " + ", ".join(
+        f"{k} {v}" for k, v in rep.get("stage_seconds", {}).items()))
+    phase("[scale] BA: " + ", ".join(
+        f"{k} {v:.3f}" if not float(v).is_integer() else f"{k} {int(v)}"
+        for k, v in rep.get("ba_stats", {}).items()))
+    phase(f"[scale] snapshots {snapshots}; peak device memory "
+          f"{rep.get('peak_device_memory_bytes')} bytes")
+    phase(f"[scale] registered {rep.get('num_registered')}/{SCALE_IMAGES}, "
+          f"max rotation error {rep.get('max_rotation_error_deg')} deg, max "
+          f"centre error {rep.get('max_center_error')}, images/s "
+          f"{rep.get('images_per_s')}")
+    if rc != 0 or not rep["ok"]:
+        fail(f"scale_run failed its gates: "
+             f"{rep.get('reason') or rep.get('traceback')}")
+    if not (rep["num_registered"] >= 0.95 * SCALE_IMAGES
+            and rep["max_rotation_error_deg"] <= 1.0
+            and rep["max_center_error"] <= 0.05):
+        fail("scale_run's report passes, but not the gates it states")
 
 
 def reprojection_errors(rec, device) -> torch.Tensor:

@@ -35,8 +35,7 @@ from colmap_tpu_torch.mvs import fusion as fusion_mod
 from colmap_tpu_torch.mvs import meshing as meshing_mod
 from colmap_tpu_torch.mvs import model as model_mod
 from colmap_tpu_torch.mvs import patch_match as pm
-from colmap_tpu_torch.parallel.mesh import (make_mesh, resolve_num_devices,
-                                            run_shards)
+from colmap_tpu_torch.parallel.mesh import run_shards, shard_mesh
 from colmap_tpu_torch.scene import reconstruction_io
 from colmap_tpu_torch.sensor import bitmap as bitmap_mod
 
@@ -94,14 +93,13 @@ def run_patch_match_stereo(workspace_path: str,
 
     The draws come from one torch.Generator on `device` seeded with
     `seed`. With `options.num_devices` > 1 (0 = every local card) the
-    problems go round robin over a mesh of that many shards (problem k of
-    the sorted images to shard k mod n, as the JAX package spreads them
-    over its devices), each shard on its own thread with a generator
-    seeded seed + rank. `timings`, when a dict, gets the wall seconds of
-    each pass ("photometric", "geometric") and the number of maps per pass
-    ("maps")."""
-    n_dev = resolve_num_devices(options.num_devices, device)
-    mesh = make_mesh(n_dev, device) if n_dev > 1 else None
+    problems go round robin over a mesh of that many shards, at most one
+    per card present on `cuda` (problem k of the sorted images to shard k
+    mod n, as the JAX package spreads them over its devices), each shard
+    on its own thread with a generator seeded seed + rank. `timings`, when
+    a dict, gets the wall seconds of each pass ("photometric",
+    "geometric") and the number of maps per pass ("maps")."""
+    mesh = shard_mesh(options.num_devices, device)
     model, images = _load_workspace(workspace_path, options.max_image_size)
     devices = mesh.devices if mesh is not None else (device,)
     generators = []

@@ -37,8 +37,7 @@ from colmap_tpu_torch.features import hopper_matcher
 from colmap_tpu_torch.features import matching as matching_mod
 from colmap_tpu_torch.features import pairing as pairing_mod
 from colmap_tpu_torch.features.sift import affine_to_keypoints
-from colmap_tpu_torch.parallel.mesh import (make_mesh, resolve_num_devices,
-                                            run_shards)
+from colmap_tpu_torch.parallel.mesh import run_shards, shard_mesh
 from colmap_tpu_torch.retrieval import visual_index as vi_mod
 from colmap_tpu_torch.scene.database import Database
 from colmap_tpu_torch.sensor import models as camera_models
@@ -313,17 +312,16 @@ def match_and_verify_blocks(
     two-view geometries.
 
     With `options.num_devices` > 1 (0 = every local card) each block's
-    pairs split into contiguous parts over a mesh of that many shards
-    (parallel/mesh.py): each shard matches its part from a descriptor pool
-    of its own and verifies it with a generator of its own (seeded
-    seed + rank), on its device and thread; the host then writes the
-    block's rows in pair order. The matches equal one device's; the
+    pairs split into contiguous parts over a mesh of that many shards, at
+    most one per card present on `cuda` (parallel/mesh.py): each shard
+    matches its part from a descriptor pool of its own and verifies it
+    with a generator of its own (seeded seed + rank), on its device and
+    thread; the host then writes the block's rows in pair order. The matches equal one device's; the
     verification draws differ."""
     cameras = database.read_cameras()
     data = _ImageData(database, cameras)
     stats = MatchingStats()
-    n_dev = resolve_num_devices(options.num_devices, device)
-    mesh = make_mesh(n_dev, device) if n_dev > 1 else None
+    mesh = shard_mesh(options.num_devices, device)
     shards = ([_Shard(d, seed + k) for k, d in enumerate(mesh.devices)]
               if mesh is not None else [_Shard(device, seed)])
 

@@ -56,8 +56,10 @@ class HierarchicalPipelineOptions:
     # concurrent cluster reconstructions (reference: a thread pool over
     # the clusters, hierarchical_mapper.cc). On one H100 the 200-image
     # hierarchical gate mapped 0.50x as fast with 4 threads as with 1
-    # (158.9 against 79.1 s, PERF.md section 5): the threads share one
-    # process, so on CUDA num_workers=1 is the faster setting today.
+    # (158.9 against 79.1 s), the 1000-image scale run (leaves of 238, 294
+    # and 508 images) 0.68x (175.6 against 119.2 s; PERF.md section 7):
+    # the threads share one process, so on CUDA num_workers=1 is the
+    # faster setting today.
     num_workers: int = 4
     # pose-graph edge acceptance
     align_max_error: float = 0.1

@@ -149,9 +149,12 @@ class IncrementalPipeline(BaseController):
             return last_snapshot
         n = len(mapper.registered)
         if n // opts.snapshot_images_freq > last_snapshot // opts.snapshot_images_freq:
+            t0 = time.perf_counter()
             path = os.path.join(opts.snapshot_path, f"{n:06d}")
             os.makedirs(path, exist_ok=True)
             reconstruction_io.write_model(mapper.finalize(), path, ext=".bin")
+            # the model's finalize and write: a stage of its own
+            self.stage_s["snapshot"] += time.perf_counter() - t0
             logger.info("snapshot at %d images -> %s", n, path)
             return n
         return last_snapshot

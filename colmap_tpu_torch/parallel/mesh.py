@@ -6,10 +6,12 @@ one process holds a `Mesh` of devices and `shard_map` runs one program per
 device, with `psum` across them. The port keeps that shape in one process:
 
   * a `Mesh` is an explicit list of torch devices, which may repeat a
-    device. On `cuda`, `make_mesh` places its shards round robin over the
-    local cards, several shards on one card when there are fewer cards than
-    shards (the counterpart of JAX's virtual CPU mesh); on `cpu` every shard
-    is the CPU;
+    device. On `cuda`, `make_mesh` takes one shard per card present, up to
+    the count asked for, as JAX slices its device list
+    (`jax.devices()[:n]`): `num_devices=4` on a one-card host runs on that
+    card. On `cpu` it makes the n shards asked for, all on the CPU (the
+    counterpart of JAX's virtual CPU mesh). Virtual shards on one card are
+    built explicitly, `Mesh([device] * n)`;
   * `run_shards` runs one host thread per shard, each with its shard's
     device current, and hands each a `ShardGroup`: its rank plus the
     group's collectives. `all_reduce_sum` and `all_gather` combine the
@@ -78,16 +80,19 @@ def resolve_num_devices(n: int, device="cuda") -> int:
 
 def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
     """A mesh of `n_devices` shards (default: one per local card on `cuda`,
-    one on `cpu`). On `cuda` shard k goes to card (first + k) mod count,
-    where `first` is the index in `device` (0 when none is given); a mesh
-    asked for on `cuda` raises where there is no card."""
+    one on `cpu`). On `cuda` the mesh holds at most one shard per card
+    present, as JAX's `jax.devices()[:n_devices]`: shard k goes to card
+    (first + k) mod count, where `first` is the index in `device` (0 when
+    none is given), for k < min(n_devices, count); a mesh asked for on
+    `cuda` raises where there is no card. On `cpu` it holds `n_devices`
+    shards."""
     dev = torch.device(device)
     if dev.type == "cuda":
         count = torch.cuda.device_count()
         if count == 0:
             raise RuntimeError(f"a mesh on {device} needs a CUDA device; "
                                "none is available")
-        n = count if n_devices is None else int(n_devices)
+        n = count if n_devices is None else min(int(n_devices), count)
         first = dev.index or 0
         devices = [torch.device("cuda", (first + k) % count)
                    for k in range(max(n, 0))]
@@ -99,9 +104,23 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
     if n < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n}")
     mesh = Mesh(devices)
-    logger.info("mesh: %d shards on %d distinct device(s)%s", mesh.size,
-                mesh.num_distinct, " (virtual shards)" if mesh.virtual else "")
+    logger.info("mesh: %d shards on %d distinct device(s)%s%s", mesh.size,
+                mesh.num_distinct, " (virtual shards)" if mesh.virtual else "",
+                f" (cut from {n_devices}: {mesh.size} card(s) present)"
+                if n_devices is not None and int(n_devices) > mesh.size
+                else "")
     return mesh
+
+
+def shard_mesh(num_devices: int, device="cuda") -> Optional[Mesh]:
+    """The mesh a `num_devices` option asks for (`resolve_num_devices`,
+    then `make_mesh` on the cards present), or None where that leaves one
+    shard: the caller's one-device path."""
+    n = resolve_num_devices(num_devices, device)
+    if n <= 1:
+        return None
+    mesh = make_mesh(n, device)
+    return mesh if mesh.size > 1 else None
 
 
 def pad_to_multiple(x, multiple: int, axis: int = 0, fill=0):

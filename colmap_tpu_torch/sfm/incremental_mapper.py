@@ -42,7 +42,7 @@ from colmap_tpu_torch.geometry.triangulation import (
 )
 from colmap_tpu_torch.optim.ransac import RansacOptions, ransac
 from colmap_tpu_torch.parallel import distributed_ba as dba
-from colmap_tpu_torch.parallel.mesh import make_mesh, resolve_num_devices
+from colmap_tpu_torch.parallel.mesh import shard_mesh
 from colmap_tpu_torch.scene.database_cache import DatabaseCache
 from colmap_tpu_torch.scene.reconstruction import (
     Point3D,
@@ -190,11 +190,9 @@ class IncrementalMapper:
         self.cache = cache
         self.options = options
         self.device = torch.device(device)
-        # global BAs shard over a mesh of this many shards, made at the
-        # first sharded solve; local BAs stay on `device`
-        self.num_shards = resolve_num_devices(options.num_devices,
-                                              self.device)
-        self._mesh = None
+        # global BAs shard over this mesh (at most one shard per card
+        # present on `cuda`; None: one device); local BAs stay on `device`
+        self._mesh = shard_mesh(options.num_devices, self.device)
         # BA sub-timers and counters (seconds of the build / solve / apply
         # phases; calls, LM iterations, CG steps and host synchronizations
         # of local "lba_" and global "gba_" bundle adjustments), reported
@@ -1503,9 +1501,7 @@ class IncrementalMapper:
         # multi-device: the pose-sharded solver, once the model has an
         # image for every shard (JAX: incremental_mapper.py:1680-1704)
         mesh = None
-        if self.num_shards > 1 and len(all_imgs) >= self.num_shards:
-            if self._mesh is None:
-                self._mesh = make_mesh(self.num_shards, self.device)
+        if self._mesh is not None and len(all_imgs) >= self._mesh.size:
             mesh = self._mesh
         state = self._solve(problem, ba_options, "gba", mesh)
         t0 = time.perf_counter()

@@ -20,15 +20,21 @@ machine without JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest -o addopts=""
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from colmap_tpu_torch import bench_ba, bench_matcher, bench_rig
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar
+from colmap_tpu_torch.controllers import dense_reconstruction as dense
 from colmap_tpu_torch.controllers import feature_extraction as fe
 from colmap_tpu_torch.controllers import feature_matching as fm
 from colmap_tpu_torch.controllers import hierarchical_pipeline as hp
+from colmap_tpu_torch.controllers.incremental_pipeline import (
+    IncrementalPipeline, IncrementalPipelineOptions)
 from colmap_tpu_torch.estimators import absolute_pose as ap
 from colmap_tpu_torch.estimators import alignment as align
 from colmap_tpu_torch.estimators import bundle_adjustment as ba
@@ -42,6 +48,8 @@ from colmap_tpu_torch.features import hopper_matcher as hm
 from colmap_tpu_torch.features import matching as tm
 from colmap_tpu_torch.features import pairing
 from colmap_tpu_torch.features import sift as sift_mod
+from colmap_tpu_torch.image import undistortion as und
+from colmap_tpu_torch.mvs import depth_map as dm
 from colmap_tpu_torch.mvs import fusion as fusion_mod
 from colmap_tpu_torch.mvs import meshing
 from colmap_tpu_torch.mvs import model as mvs_model
@@ -51,6 +59,7 @@ from colmap_tpu_torch.parallel import mesh as pmesh
 from colmap_tpu_torch.parallel import sharded_matching as psm
 from colmap_tpu_torch.retrieval import kmeans as km
 from colmap_tpu_torch.retrieval import visual_index as vi_mod
+from colmap_tpu_torch.scene import reconstruction_io as rio
 from colmap_tpu_torch.scene import synthetic as tsyn
 from colmap_tpu_torch.scene import synthetic_images as synth
 from colmap_tpu_torch.scene.database import Database
@@ -727,13 +736,15 @@ def _distributed_ba_matches_cpu(mesh):
 
 
 def test_sharded_matching_on_four_virtual_shards(cuda):
-    mesh = pmesh.make_mesh(4, cuda)
-    assert mesh.num_distinct == min(4, torch.cuda.device_count())
+    # make_mesh holds one shard per card present: virtual shards on one
+    # card are built explicitly
+    mesh = pmesh.Mesh([torch.device(cuda, 0)] * 4)
+    assert mesh.size == 4 and mesh.num_distinct == 1
     _sharded_matching_equals_one_shard(mesh)
 
 
 def test_distributed_ba_cuda_matches_cpu(cuda):
-    _distributed_ba_matches_cpu(pmesh.make_mesh(4, cuda))
+    _distributed_ba_matches_cpu(pmesh.Mesh([torch.device(cuda, 0)] * 4))
 
 
 def test_parallel_slice_on_two_cards(cuda):
@@ -746,3 +757,120 @@ def test_parallel_slice_on_two_cards(cuda):
     assert mesh.num_distinct == 2
     _sharded_matching_equals_one_shard(mesh)
     _distributed_ba_matches_cpu(mesh)
+
+
+def _room_gt(K, Rs, ts, names, width, height):
+    gt = Reconstruction()
+    gt.add_camera(Camera(camera_id=1, model_id=1, width=width, height=height,
+                         params=np.array([K[0, 0], K[1, 1], K[0, 2],
+                                          K[1, 2]])))
+    for i, (R, t) in enumerate(zip(Rs, ts)):
+        q = rot.rotmat_to_quat(torch.as_tensor(R, dtype=torch.float64))
+        gt.add_image(Image(image_id=i + 1, name=names[i], camera_id=1,
+                           cam_from_world=np.concatenate([q.numpy(), t])))
+    return gt
+
+
+def _matched_copy(src, dst, num_devices, cuda):
+    """A copy of database `src` at `dst`, matched anew by match_exhaustive
+    with `num_devices`; returns it open with the K1 launches per shard
+    thread."""
+    shutil.copy(src, dst)
+    db = Database(dst)
+    db.conn.execute("DELETE FROM matches")
+    db.conn.execute("DELETE FROM two_view_geometries")
+    db.commit()
+    hm.launches_by_thread.clear()
+    fm.match_exhaustive(db, fm.FeatureMatchingOptions(num_devices=num_devices),
+                        device=cuda)
+    return db, dict(hm.launches_by_thread)
+
+
+def test_entry_points_shard_over_two_cards(cuda, tmp_path):
+    """The controllers' `num_devices=2` branches with one shard on each of
+    two cards, on a 12-image 640x480 room: match_exhaustive's match rows
+    equal the one-device run's and its verified pairs >= 95% of the union
+    (the shards draw their own RANSAC samples); the mapper registers every
+    image with >= 1 sharded global BA, every rotation within 1 deg and
+    every centre within 0.05 x room size of the render after a Sim3; the
+    round-robin PatchMatch writes every map, >= 40% of each estimated, its
+    points a median < 0.03 x room size from the room's faces (the smoke's
+    dense gates)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mesh = pmesh.shard_mesh(2, cuda)
+    assert mesh.size == 2 and mesh.num_distinct == 2
+    o = synth.RoomDatasetOptions(num_images=12, width=640, height=480,
+                                 focal=560.0, seed=11)
+    images, K, Rs, ts = synth.render_room_dataset(o)
+    image_path = str(tmp_path / "images")
+    names = synth.write_dataset(image_path, images)
+    gt = _room_gt(K, Rs, ts, names, o.width, o.height)
+    _, db = ar.run_automatic_reconstruction(
+        ar.AutomaticReconstructionOptions(
+            workspace_path=str(tmp_path / "ws"), image_path=image_path,
+            quality=ar.Quality.HIGH, camera_model="PINHOLE",
+            single_camera=True, sparse=False,
+            camera_params=",".join(map(str, [K[0, 0], K[1, 1], K[0, 2],
+                                             K[1, 2]]))), device=cuda)
+    db.close()
+    src = str(tmp_path / "ws" / "database.db")
+
+    one, _ = _matched_copy(src, str(tmp_path / "one.db"), 1, cuda)
+    two, per_shard = _matched_copy(src, str(tmp_path / "two.db"), 2, cuda)
+    assert all(per_shard.get(f"shard-{k}", 0) >= 1 for k in range(2)), \
+        per_shard
+    ids = sorted(one.read_images())
+    for a, b in [(a, b) for i, a in enumerate(ids) for b in ids[i + 1:]]:
+        m1, m2 = one.read_matches(a, b), two.read_matches(a, b)
+        assert (m1 is None) == (m2 is None), (a, b)
+        if m1 is not None:
+            np.testing.assert_array_equal(m2, m1)
+    t1 = set(one.read_all_two_view_geometries())
+    t2 = set(two.read_all_two_view_geometries())
+    assert len(t1 & t2) >= 0.95 * len(t1 | t2) and t1
+    one.close()
+
+    popts = IncrementalPipelineOptions()
+    popts.mapper.num_devices = 2
+    pipe = IncrementalPipeline(two, popts, device=cuda)
+    rec = pipe.run()
+    two.close()
+    assert rec is not None and rec.num_registered_images() == o.num_images
+    assert pipe.ba_stats["gba_sharded_calls"] >= 1, pipe.ba_stats
+    s = o.room_size
+    cmp = st.compare_reconstructions(rec, gt, device=cuda)
+    assert cmp["max_rotation_error_deg"] <= 1.0, cmp["rotation_errors_deg"]
+    assert cmp["max_center_error"] <= 0.05 * s, cmp["center_errors"]
+
+    dense_dir = str(tmp_path / "dense")
+    und.run_undistorter(rec, image_path, dense_dir, device=cuda)
+    timings = {}
+    dense.run_patch_match_stereo(dense_dir, dense.PatchMatchStereoOptions(
+        num_devices=2, max_image_size=256), device=cuda, timings=timings)
+    assert timings["maps"] == o.num_images
+    urec = rio.read_model(os.path.join(dense_dir, "sparse"))
+    to_gt = torch.as_tensor(cmp["sim3"])
+    for iid in rec.registered_image_ids():
+        im = urec.images[iid]
+        path = os.path.join(dense_dir, "stereo", "depth_maps",
+                            f"{im.name}.geometric.bin")
+        assert os.path.exists(os.path.join(
+            dense_dir, "stereo", "normal_maps", f"{im.name}.geometric.bin"))
+        depth = dm.DepthMap.read(path).data
+        ys, xs = np.nonzero(depth > 0)
+        assert len(ys) >= 0.4 * depth.size, (im.name, len(ys) / depth.size)
+        cam = urec.cameras[im.camera_id]
+        sx, sy = depth.shape[1] / cam.width, depth.shape[0] / cam.height
+        fx, fy, cx, cy = cam.params[:4] * np.array([sx, sy, sx, sy])
+        d = depth[ys, xs].astype(np.float64)
+        Xc = np.stack([(xs + 0.5 - cx) / fx * d, (ys + 0.5 - cy) / fy * d, d],
+                      -1)
+        q = torch.as_tensor(im.cam_from_world[:4])
+        R = rot.quat_to_rotmat(q / torch.linalg.vector_norm(q)).numpy()
+        p = s3.apply(to_gt, torch.as_tensor(
+            (Xc - im.cam_from_world[4:7]) @ R)).numpy()
+        dist = np.minimum(np.minimum(np.abs(p[:, 2] - s),
+                                     np.abs(p[:, 0] - s)),
+                          np.abs(p[:, 1] - s / 2))
+        assert np.median(dist) < 0.03 * s, (im.name, np.median(dist))

@@ -174,6 +174,8 @@ def test_snapshots_and_stage_report(runs, tmp_path):
     assert snaps and all(int(s) >= 3 for s in snaps)
     assert trio.read_model(tmp_path / snaps[-1]).num_registered_images() \
         <= rec.num_registered_images()
+    # the snapshots' seconds are a stage of their own
+    assert pipe.stage_s["snapshot"] > 0.0
     # the BA counters stay apart from the stage seconds
     assert "global_ba" in pipe.stage_s and "gba_calls" not in pipe.stage_s
     assert pipe.ba_stats["gba_calls"] >= 1

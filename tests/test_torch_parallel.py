@@ -5,7 +5,9 @@ shards, one thread each) against the JAX package on its `make_mesh(8)`
 (conftest's eight virtual CPU devices), with inputs made from numpy seeds.
 Held:
 - `pad_to_multiple` equal to JAX's; `resolve_num_devices`; `make_mesh`'s
-  round robin over the cards and its refusal without one;
+  round robin over the cards present, at most one shard per card (JAX's
+  `jax.devices()[:n]`), its refusal without one, and an explicit `Mesh`
+  of virtual shards;
 - the collectives: the same bits on every shard, shard order; a shard that
   raises fails the call within seconds;
 - sharded and all-gather matching: equal to the port's one-shard run and
@@ -101,18 +103,42 @@ def test_pad_to_multiple_and_resolve_num_devices():
 
 
 def test_make_mesh_places_shards_round_robin_over_cards(monkeypatch):
+    # at most one shard per card present, as JAX's jax.devices()[:n]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     m = tmesh.make_mesh(5, device="cuda")
-    assert [str(d) for d in m.devices] == [
-        "cuda:0", "cuda:1", "cuda:0", "cuda:1", "cuda:0"]
-    assert m.num_distinct == 2 and m.virtual
+    assert [str(d) for d in m.devices] == ["cuda:0", "cuda:1"]
+    assert m.num_distinct == 2 and not m.virtual
     assert not tmesh.make_mesh(2, device="cuda").virtual
     assert tmesh.make_mesh(device="cuda").size == 2
-    assert str(tmesh.make_mesh(2, device="cuda:1").devices[0]) == "cuda:1"
+    assert [str(d) for d in tmesh.make_mesh(2, device="cuda:1").devices] \
+        == ["cuda:1", "cuda:0"]
+    assert [str(d) for d in tmesh.make_mesh(5, device="cuda:1").devices] \
+        == ["cuda:1", "cuda:0"]
+    assert tmesh.shard_mesh(4, "cuda").size == 2
+    assert tmesh.shard_mesh(1, "cuda") is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    m = tmesh.make_mesh(4, device="cuda")
+    assert m.size == 1 and [str(d) for d in m.devices] == ["cuda:0"]
+    # num_devices=4 on one card takes the callers' one-device path
+    assert tmesh.shard_mesh(4, "cuda") is None
+    assert tmesh.shard_mesh(0, "cuda") is None
+    # the CPU mesh keeps its n shards (JAX's virtual CPU devices)
+    assert tmesh.make_mesh(4, device="cpu").size == 4
+    assert tmesh.shard_mesh(4, "cpu").size == 4
     # a mesh asked for on the card never lands on the CPU
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         tmesh.make_mesh(4, device="cuda")
+
+
+def test_explicit_mesh_of_virtual_shards_runs_collectives():
+    """Virtual shards, several on one device, are built explicitly."""
+    mesh = tmesh.Mesh([torch.device("cpu")] * 4)
+    assert mesh.size == 4 and mesh.num_distinct == 1 and mesh.virtual
+    out = tmesh.run_shards(mesh, lambda g: g.all_reduce_sum(
+        torch.tensor([float(g.rank), 1.0])))
+    for t in out:
+        assert torch.equal(t, torch.tensor([6.0, 4.0]))
 
 
 def test_collectives_give_every_shard_the_same_bits(mesh8):
