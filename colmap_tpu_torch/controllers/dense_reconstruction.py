@@ -16,6 +16,14 @@ robin over a device mesh (`num_devices`). Workspace layout
       stereo/consistency_graphs/<image>.<input_type>.bin
       fused.ply
       meshed-poisson.ply
+
+What an operator reads: the seconds `run_patch_match_stereo` puts in its
+`timings` dict, and the Chrome trace that `util.timer.trace(log_dir)`
+writes around a call, where the job's spans show as ranges:
+`dense.patch_match_stereo` (the job), `dense.load_workspace`, one
+`dense.pass` per pass, per problem `dense.upload`, `dense.solve` and
+`dense.fetch`, then `dense.write_maps`; inside each solve the solver's
+own (`mvs/patch_match.py`).
 """
 
 from __future__ import annotations
@@ -23,7 +31,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -38,6 +45,7 @@ from colmap_tpu_torch.mvs import patch_match as pm
 from colmap_tpu_torch.parallel.mesh import run_shards, shard_mesh
 from colmap_tpu_torch.scene import reconstruction_io
 from colmap_tpu_torch.sensor import bitmap as bitmap_mod
+from colmap_tpu_torch.util import timer
 
 logger = logging.getLogger("colmap_tpu_torch")
 
@@ -97,10 +105,22 @@ def run_patch_match_stereo(workspace_path: str,
     per card present on `cuda` (problem k of the sorted images to shard k
     mod n, as the JAX package spreads them over its devices), each shard
     on its own thread with a generator seeded seed + rank. `timings`, when
-    a dict, gets the wall seconds of each pass ("photometric",
-    "geometric") and the number of maps per pass ("maps")."""
+    a dict, gets the job's seconds from its spans: each pass
+    ("photometric", "geometric"), the workspace load ("load") and the map
+    writes ("write"), and the number of maps per pass ("maps")."""
+    with timer.span("dense.patch_match_stereo"):
+        return _patch_match_stereo(workspace_path, options, seed, device,
+                                   {} if timings is None else timings)
+
+
+def _patch_match_stereo(workspace_path: str, options: PatchMatchStereoOptions,
+                        seed: int, device, spent: dict
+                        ) -> Dict[int, np.ndarray]:
     mesh = shard_mesh(options.num_devices, device)
-    model, images = _load_workspace(workspace_path, options.max_image_size)
+    with timer.span("dense.load_workspace") as load:
+        model, images = _load_workspace(workspace_path,
+                                        options.max_image_size)
+    spent["load"] = load.seconds
     devices = mesh.devices if mesh is not None else (device,)
     generators = []
     for k, dev in enumerate(devices):
@@ -111,6 +131,8 @@ def run_patch_match_stereo(workspace_path: str,
     def solve_part(geom: bool, prior: Dict[int, np.ndarray], rank: int):
         """The problems of shard `rank` on its device."""
         dev, generator = devices[rank], generators[rank]
+        on_card = torch.device(dev).type == "cuda"
+        kind = "geometric" if geom else "photometric"
         depths, normals = {}, {}
         po = dataclasses.replace(options.patch_match, geom_consistency=geom)
 
@@ -119,68 +141,75 @@ def run_patch_match_stereo(workspace_path: str,
                                    device=dev)
 
         for ref_id, im in order[rank::len(devices)]:
-            srcs = model.src_images(ref_id, options.max_num_src_images)
-            if not srcs:
-                logger.warning("image %d has no source images", ref_id)
-                continue
-            dmin, dmax = model.depth_ranges[ref_id]
-            R_ref, t_ref = im.R, im.t
-            R_rel = np.stack([model.images[s].R @ R_ref.T for s in srcs])
-            t_rel = np.stack([model.images[s].t - R_rel[i] @ t_ref
-                              for i, s in enumerate(srcs)])
-            src_depths = None
-            if geom:
-                src_depths = put(np.stack(
-                    [prior.get(s, np.zeros_like(images[s])) for s in srcs]))
-            problem = pm.PatchMatchProblem(
-                ref_image=put(images[ref_id]),
-                src_images=put(np.stack([images[s] for s in srcs])),
-                K_ref=put(im.K),
-                K_src=put(np.stack([model.images[s].K for s in srcs])),
-                R_rel=put(R_rel),
-                t_rel=put(t_rel),
-                depth_min=put(np.float32(dmin)),
-                depth_max=put(np.float32(dmax)),
-                src_depths=src_depths,
-            )
-            draws = pm.GeneratorDraws(generator, images[ref_id].shape)
-            depth, normal, _ = pm.patch_match(draws, problem, po)
-            depths[ref_id] = depth.cpu().numpy()
-            normals[ref_id] = normal.cpu().numpy()
-            logger.info("patch-match %s (%s): %.0f%% estimated",
-                        im.name, "geom" if geom else "photo",
-                        100.0 * float((depths[ref_id] > 0).mean()))
+            with timer.span("dense.upload", image_id=ref_id):
+                srcs = model.src_images(ref_id, options.max_num_src_images)
+                if not srcs:
+                    logger.warning("image %d has no source images", ref_id)
+                    continue
+                dmin, dmax = model.depth_ranges[ref_id]
+                R_ref, t_ref = im.R, im.t
+                R_rel = np.stack([model.images[s].R @ R_ref.T for s in srcs])
+                t_rel = np.stack([model.images[s].t - R_rel[i] @ t_ref
+                                  for i, s in enumerate(srcs)])
+                src_depths = None
+                if geom:
+                    src_depths = put(np.stack(
+                        [prior.get(s, np.zeros_like(images[s]))
+                         for s in srcs]))
+                problem = pm.PatchMatchProblem(
+                    ref_image=put(images[ref_id]),
+                    src_images=put(np.stack([images[s] for s in srcs])),
+                    K_ref=put(im.K),
+                    K_src=put(np.stack([model.images[s].K for s in srcs])),
+                    R_rel=put(R_rel),
+                    t_rel=put(t_rel),
+                    depth_min=put(np.float32(dmin)),
+                    depth_max=put(np.float32(dmax)),
+                    src_depths=src_depths,
+                )
+                draws = pm.GeneratorDraws(generator, images[ref_id].shape)
+            with timer.span("dense.solve", image_id=ref_id,
+                            sources=len(srcs), **{"pass": kind}):
+                depth, normal, _ = pm.patch_match(draws, problem, po)
+                if on_card:
+                    torch.cuda.synchronize(dev)
+            with timer.span("dense.fetch", image_id=ref_id):
+                depths[ref_id] = depth.cpu().numpy()
+                normals[ref_id] = normal.cpu().numpy()
+                logger.info("patch-match %s (%s): %.0f%% estimated",
+                            im.name, "geom" if geom else "photo",
+                            100.0 * float((depths[ref_id] > 0).mean()))
         return depths, normals
 
     def solve_all(geom: bool, prior: Dict[int, np.ndarray]):
-        if mesh is None:
-            return solve_part(geom, prior, 0)
-        depths, normals = {}, {}
-        for d, nm in run_shards(mesh, lambda g: solve_part(geom, prior,
-                                                           g.rank)):
-            depths.update(d)
-            normals.update(nm)
+        kind = "geometric" if geom else "photometric"
+        with timer.span("dense.pass", **{"pass": kind}) as p:
+            if mesh is None:
+                depths, normals = solve_part(geom, prior, 0)
+            else:
+                depths, normals = {}, {}
+                for d, nm in run_shards(
+                        mesh, lambda g: solve_part(geom, prior, g.rank)):
+                    depths.update(d)
+                    normals.update(nm)
+        spent[kind] = p.seconds
         return depths, normals
 
-    t0 = time.perf_counter()
     depths, normals = solve_all(False, {})
-    t1 = time.perf_counter()
-    if timings is not None:
-        timings["photometric"] = t1 - t0
-        timings["maps"] = len(depths)
+    spent["maps"] = len(depths)
     if options.geom_consistency:
         depths, normals = solve_all(True, depths)
-        if timings is not None:
-            timings["geometric"] = time.perf_counter() - t1
 
     suffix = "geometric" if options.geom_consistency else "photometric"
-    for ref_id, im in model.images.items():
-        if ref_id not in depths:
-            continue
-        dm.DepthMap(depths[ref_id]).write(
-            _suffix_path(workspace_path, "depth_maps", im.name, suffix))
-        dm.NormalMap(normals[ref_id]).write(
-            _suffix_path(workspace_path, "normal_maps", im.name, suffix))
+    with timer.span("dense.write_maps") as write:
+        for ref_id, im in model.images.items():
+            if ref_id not in depths:
+                continue
+            dm.DepthMap(depths[ref_id]).write(
+                _suffix_path(workspace_path, "depth_maps", im.name, suffix))
+            dm.NormalMap(normals[ref_id]).write(
+                _suffix_path(workspace_path, "normal_maps", im.name, suffix))
+    spent["write"] = write.seconds
     return depths
 
 

@@ -42,6 +42,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from colmap_tpu_torch.util.timer import span
+
 _F32 = torch.float32
 # The JAX solver sums the window taps in chunks of 8 and pads the last
 # chunk with taps at offset (0, 0) and weight 0, which still count towards
@@ -386,23 +388,27 @@ def _set_cost(problem: PatchMatchProblem, pre: _Precomp,
               normal: torch.Tensor) -> torch.Tensor:
     """The aggregated cost [N] of the planes (depth [N], normal [N, 3]) at
     the pixels of S: per source the photometric cost (+ the weighted
-    geometric term), then the mean of the top_k lowest."""
-    X = [depth * S.rays[:, c] for c in range(3)]
-    ndotX = normal[:, 0] * X[0] + normal[:, 1] * X[1] + normal[:, 2] * X[2]
-    ndotX = torch.where(torch.abs(ndotX) < 1e-9,
-                        torch.full_like(ndotX, 1e-9), ndotX)
-    # m = K1^-T n, row vector form n @ K1^-1
-    Kinv = pre.Kinv
-    m = [normal[:, 0] * Kinv[0, c] + normal[:, 1] * Kinv[1, c]
-         + normal[:, 2] * Kinv[2, c] for c in range(3)]
-    A = problem.K_src @ problem.R_rel @ Kinv
-    b = (problem.K_src @ problem.t_rel[..., None])[..., 0]
-    costs = _photometric_cost(problem, S, A, b, m, 1.0 / ndotX, _window(opts))
-    if opts.geom_consistency and problem.src_depths is not None:
-        costs = costs + opts.geom_consistency_regularizer * _geom_cost(
-            problem, X, S.px, S.py, opts)
-    k = min(opts.top_k, costs.shape[0])
-    return torch.topk(costs, k, dim=0, largest=False).values.mean(0)
+    geometric term), then the mean of the top_k lowest. One span,
+    `patch_match.cost`, per call."""
+    with span("patch_match.cost"):
+        X = [depth * S.rays[:, c] for c in range(3)]
+        ndotX = (normal[:, 0] * X[0] + normal[:, 1] * X[1]
+                 + normal[:, 2] * X[2])
+        ndotX = torch.where(torch.abs(ndotX) < 1e-9,
+                            torch.full_like(ndotX, 1e-9), ndotX)
+        # m = K1^-T n, row vector form n @ K1^-1
+        Kinv = pre.Kinv
+        m = [normal[:, 0] * Kinv[0, c] + normal[:, 1] * Kinv[1, c]
+             + normal[:, 2] * Kinv[2, c] for c in range(3)]
+        A = problem.K_src @ problem.R_rel @ Kinv
+        b = (problem.K_src @ problem.t_rel[..., None])[..., 0]
+        costs = _photometric_cost(problem, S, A, b, m, 1.0 / ndotX,
+                                  _window(opts))
+        if opts.geom_consistency and problem.src_depths is not None:
+            costs = costs + opts.geom_consistency_regularizer * _geom_cost(
+                problem, X, S.px, S.py, opts)
+        k = min(opts.top_k, costs.shape[0])
+        return torch.topk(costs, k, dim=0, largest=False).values.mean(0)
 
 
 def _cost_fn(problem: PatchMatchProblem, pre: _Precomp,
@@ -466,17 +472,29 @@ def patch_match(draws, problem: PatchMatchProblem,
     """Run PatchMatch; returns (depth [H,W], normal [H,W,3], cost [H,W]) on
     the problem's device. `draws` is a GeneratorDraws or RecordedDraws.
 
-    Filtered pixels (NCC too low) get depth 0.
+    Filtered pixels (NCC too low) get depth 0. Its spans: `patch_match`
+    around the whole call (it names what falls between the phases), and
+    inside it `patch_match.precompute`, `patch_match.init`, one
+    `patch_match.propagation` and one `patch_match.refinement` per
+    half-iteration, `patch_match.filter`, and inside those one
+    `patch_match.cost` per cost evaluation.
     """
+    with span("patch_match"):
+        return _patch_match(draws, problem, options, active_half)
+
+
+def _patch_match(draws, problem: PatchMatchProblem,
+                 options: PatchMatchOptions, active_half: bool):
     ref = problem.ref_image
     h, w = ref.shape
     dev = ref.device
     opts = options
-    pre = _precompute(problem, opts)
-    rays = pre.rays
-    dmin, dmax = problem.depth_min, problem.depth_max
-    sets = _checker_sets(pre) if active_half else [
-        _pixel_set(pre, torch.arange(h * w, device=dev))]
+    with span("patch_match.precompute"):
+        pre = _precompute(problem, opts)
+        rays = pre.rays
+        dmin, dmax = problem.depth_min, problem.depth_max
+        sets = _checker_sets(pre) if active_half else [
+            _pixel_set(pre, torch.arange(h * w, device=dev))]
 
     def cost_at(S, depth, normal):
         return _set_cost(problem, pre, opts, S, depth.reshape(-1)[S.idx],
@@ -497,55 +515,61 @@ def patch_match(draws, problem: PatchMatchProblem,
             nf[S.idx] = torch.where(better[:, None], n_c, nf[S.idx])
             cf[S.idx] = torch.where(better, c_c, cf[S.idx])
 
-    u0, g0 = (t.to(dev) for t in draws.initial())
-    log_lo = torch.log(dmin)
-    log_hi = torch.log(dmax)
-    depth = torch.exp(u0 * (log_hi - log_lo) + log_lo)
-    normal = _random_normals(g0, rays)
-    cost = torch.empty((h, w), dtype=_F32, device=dev)
-    for S in sets:
-        cost.reshape(-1)[S.idx] = cost_at(S, depth, normal)
-
-    ys, xs = _pixel_grid(h, w, dev)
-    checker = ((ys + xs) % 2).to(torch.bool)
+    with span("patch_match.init"):
+        u0, g0 = (t.to(dev) for t in draws.initial())
+        log_lo = torch.log(dmin)
+        log_hi = torch.log(dmax)
+        depth = torch.exp(u0 * (log_hi - log_lo) + log_lo)
+        normal = _random_normals(g0, rays)
+        cost = torch.empty((h, w), dtype=_F32, device=dev)
+        for S in sets:
+            cost.reshape(-1)[S.idx] = cost_at(S, depth, normal)
+        ys, xs = _pixel_grid(h, w, dev)
+        checker = ((ys + xs) % 2).to(torch.bool)
 
     def draw():
         return tuple(t.to(dev) for t in draws.perturbation())
 
     for i in range(2 * opts.num_iterations):
-        it = float(i // 2)
-        cand = [_propagate(depth, normal, rays, shift)
-                for shift in ((1, 0), (-1, 0), (0, 1), (0, -1))]
-        cand += [_perturb(draw(), depth, normal, rays,
-                          0.5 * 2.0 ** -it / (j + 1))
-                 for j in range(opts.num_perturbations)]
-        cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin, dmax)
-        cand_n = torch.stack([c[1] for c in cand])
-        if active_half:
-            # colour (y + x) % 2 == 1 is active on even half-iterations
-            select(sets[(i + 1) % 2], None, cand_d, cand_n, depth, normal,
-                   cost)
-        else:
-            select(sets[0], checker ^ bool(i % 2), cand_d, cand_n, depth,
-                   normal, cost)
+        with span("patch_match.propagation", iteration=i):
+            it = float(i // 2)
+            cand = [_propagate(depth, normal, rays, shift)
+                    for shift in ((1, 0), (-1, 0), (0, 1), (0, -1))]
+            cand += [_perturb(draw(), depth, normal, rays,
+                              0.5 * 2.0 ** -it / (j + 1))
+                     for j in range(opts.num_perturbations)]
+            cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin,
+                                 dmax)
+            cand_n = torch.stack([c[1] for c in cand])
+            if active_half:
+                # colour (y + x) % 2 == 1 is active on even half-iterations
+                select(sets[(i + 1) % 2], None, cand_d, cand_n, depth,
+                       normal, cost)
+            else:
+                select(sets[0], checker ^ bool(i % 2), cand_d, cand_n, depth,
+                       normal, cost)
 
     for i in range(2 * opts.num_refinement_iterations):
-        scale = 0.02 * 2.0 ** -float(i // 2)
-        cand = [_perturb(draw(), depth, normal, rays, scale / (j + 1))
-                for j in range(2)]
-        cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin, dmax)
-        cand_n = torch.stack([c[1] for c in cand])
-        for S in sets:
-            select(S, None, cand_d, cand_n, depth, normal, cost)
+        with span("patch_match.refinement", iteration=i):
+            scale = 0.02 * 2.0 ** -float(i // 2)
+            cand = [_perturb(draw(), depth, normal, rays, scale / (j + 1))
+                    for j in range(2)]
+            cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin,
+                                 dmax)
+            cand_n = torch.stack([c[1] for c in cand])
+            for S in sets:
+                select(S, None, cand_d, cand_n, depth, normal, cost)
 
-    if opts.filter:
-        # reference filtering: photometric cost = 1 - ncc must clear
-        # filter_min_ncc (patch_match.h); geometric part is additive
-        thresh = 1.0 - opts.filter_min_ncc
-        if opts.geom_consistency:
-            thresh = thresh + (opts.geom_consistency_regularizer
-                               * opts.geom_consistency_max_cost * 0.5)
-        keep = cost < thresh
-        depth = torch.where(keep, depth, torch.zeros_like(depth))
-        normal = torch.where(keep[..., None], normal, torch.zeros_like(normal))
+    with span("patch_match.filter"):
+        if opts.filter:
+            # reference filtering: photometric cost = 1 - ncc must clear
+            # filter_min_ncc (patch_match.h); geometric part is additive
+            thresh = 1.0 - opts.filter_min_ncc
+            if opts.geom_consistency:
+                thresh = thresh + (opts.geom_consistency_regularizer
+                                   * opts.geom_consistency_max_cost * 0.5)
+            keep = cost < thresh
+            depth = torch.where(keep, depth, torch.zeros_like(depth))
+            normal = torch.where(keep[..., None], normal,
+                                 torch.zeros_like(normal))
     return depth, normal, cost

@@ -39,6 +39,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from colmap_tpu_torch.util import timer
+
 logger = logging.getLogger("colmap_tpu_torch")
 
 # seconds a shard waits in a collective for the others: a shard that neither
@@ -257,7 +259,8 @@ def run_shards(mesh: Mesh, fn: Callable[[ShardGroup], object]) -> list:
     it waits in a collective or returns (threads that launch on one device
     at once slow each other down). When a shard raises, the others leave
     their collectives (or their turn) with `threading.BrokenBarrierError`
-    and that shard's error is raised here."""
+    and that shard's error is raised here. The spans a shard opens have
+    the span open here as their parent, and its job."""
     cuda = [d for d in mesh.devices if d.type == "cuda"]
     if cuda:
         # torch loads its CUDA linear-algebra library at the first linalg
@@ -267,13 +270,14 @@ def run_shards(mesh: Mesh, fn: Callable[[ShardGroup], object]) -> list:
     rv = _Rendezvous(mesh.devices)
     results: list = [None] * mesh.size
     errors: List[Optional[BaseException]] = [None] * mesh.size
+    parent = timer.current_span()
 
     def body(rank):
         group = ShardGroup(rv, rank)
         try:
             group._enter()
             try:
-                with _device_guard(mesh.devices[rank]):
+                with _device_guard(mesh.devices[rank]), timer.adopt(parent):
                     results[rank] = fn(group)
             finally:
                 group._leave()
