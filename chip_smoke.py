@@ -43,6 +43,12 @@ with Cartesian position priors. Phases:
    (bound_ms, from B, N and M), the kernel's share of it, and
    torch._int_mm over the same products (one call per pair: a yardstick of
    an unfused route, which the port never calls);
+3b. [pm-kernel]: builds the PatchMatch cost kernel
+   (csrc/patch_match_cost.cu) and holds it to its plain twin on the dense
+   cell's shape (640x480, one checkerboard colour, 8 sources, a textured
+   plane from bench_patch_match.plane_problem) in both passes: 1e-4 on
+   99.9% of the costs, 1e-3 on all, one launch a call; prints its time a
+   call, the call's float32 bound, the twin's time and the build seconds;
 4. DSLR main path: run_automatic_reconstruction(sparse=True) on cuda, with
    the kernel launch counter zeroed just before it and read just after;
    prints the extraction, matching and mapping seconds, the mapper's stage
@@ -87,8 +93,9 @@ with Cartesian position priors. Phases:
    ground truth, every rotation within 1 deg and every centre within 0.05.
    A cluster that raises fails the phase.
 9. dense: run_automatic_reconstruction(sparse=True, dense=True) on cuda,
-   the launch counter zeroed just before and read just after (K1 runs in
-   its sparse stage); prints the sparse stages, the seconds of
+   the launch counters of K1 and of the cost kernel zeroed just before and
+   read just after (K1 runs in its sparse stage; the cost kernel once per
+   `_set_cost` call, 2 x 86 x maps, or the phase fails); prints the sparse stages, the seconds of
    undistortion, both PatchMatch passes, fusion and meshing, PatchMatch
    seconds per map and Mpix/s per pass and the peak device memory. Held,
    in the render's frame after a Sim3 alignment of the model: all 12
@@ -167,7 +174,8 @@ with Cartesian position priors. Phases:
    one sharded global BA on several cards and none on one;
    run_patch_match_stereo with num_devices=2 at max_image_size 256 on
    phase 9's workspace, held to phase 9's depth gates (every map written,
-   >= 40% estimated, median distance to the room < 0.03 x room size).
+   >= 40% estimated, median distance to the room < 0.03 x room size) and
+   to one cost-kernel launch per `_set_cost` call (2 x 86 x maps).
 14. [scale]: colmap_tpu_torch.scripts.scale_run.main in this process on
    cuda, --mode incremental, at SCALE_IMAGES images with the script's
    widths (20 points per image, each seen by 40 consecutive cameras,
@@ -179,12 +187,17 @@ with Cartesian position priors. Phases:
    device memory. Held: return code 0 and the script's own gates, >= 95%
    registered, rotation <= 1 deg, centre <= 0.05 after a Sim3 alignment.
 
-The second-to-last line is the kernel report, one JSON object: its ms,
-plain_ms and bound_ms are those of the DSLR block (B=190, N=M=1024) and
-`launches` the DSLR path's count; `shapes` holds all three shapes and
-`launches_by_path` every path's count (the dense cell's is its sparse
-stage's: PatchMatch, fusion and meshing are torch ops with no TPU kernel
-behind them; the rig and prior cells read no descriptors, so 0; the cli
+The second-to-last line is the kernel report, one JSON object whose
+"kernels" list holds the matcher's report and the cost kernel's (phase 3b;
+its ms, plain_ms and bound_ms are the photometric pass's, `shapes` holds
+both passes, `launches` is the dense cell's count (phase 9) and
+`launches_by_path` holds it and phase 13's PatchMatch run's). In the
+matcher's: its ms, plain_ms and bound_ms are those
+of the DSLR block (B=190, N=M=1024) and `launches` the DSLR path's
+count; `shapes` holds all three shapes and `launches_by_path` every
+path's count (the dense cell's is its sparse stage's: fusion and meshing
+are torch ops, and PatchMatch's cost kernel of phase 3b replaces no TPU
+kernel; the rig and prior cells read no descriptors, so 0; the cli
 path's is its first exhaustive_matcher run's; the multi path's sums its
 sharded matching and its controller run, not the one-shard comparison;
 the scale path reads a match database, so 0).
@@ -210,7 +223,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from colmap_tpu_torch import (  # noqa: E402
-    api, bench_ba, bench_hierarchical, bench_rig, cli, cuda_build)
+    api, bench_ba, bench_hierarchical, bench_patch_match, bench_rig, cli,
+    cuda_build)
 from colmap_tpu_torch.bench_matcher import (  # noqa: E402
     bound_ms, cuda_ms, int_mm_ms, random_blocks)
 from colmap_tpu_torch.controllers import automatic_reconstruction as ar  # noqa: E402
@@ -231,6 +245,8 @@ from colmap_tpu_torch.geometry import rotation as rot  # noqa: E402
 from colmap_tpu_torch.geometry import sim3  # noqa: E402
 from colmap_tpu_torch.optim.ransac import RansacOptions  # noqa: E402
 from colmap_tpu_torch.mvs import depth_map, fusion  # noqa: E402
+from colmap_tpu_torch.mvs import hopper_patch_match as hpm  # noqa: E402
+from colmap_tpu_torch.mvs import patch_match as pm  # noqa: E402
 from colmap_tpu_torch.parallel import distributed_ba as pdba  # noqa: E402
 from colmap_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from colmap_tpu_torch.parallel import sharded_matching as psm  # noqa: E402
@@ -322,6 +338,9 @@ def main():
         del b1, b2, k, r, m_k
     report["max_abs_err"] = max_err
 
+    # ---- 3b. the PatchMatch cost kernel against its twin
+    pm_report = patch_match_kernel()
+
     # phases 4 and 9 leave their database and workspace here for phase 13
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     dslr_dir = os.path.join(keep.name, "dslr")
@@ -358,7 +377,7 @@ def main():
     hierarchical_path(report)
 
     # ---- 9. the dense cell
-    dense_cell = dense_path(dense_dir, report)
+    dense_cell = dense_path(dense_dir, report, pm_report)
 
     # ---- 10. rig BA and generalized pose
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rig_") as work:
@@ -368,17 +387,83 @@ def main():
     prior_path(report)
 
     # ---- 13. the multi-device slice on a mesh of shards
-    multi_path(dslr, dense_cell, report)
+    multi_path(dslr, dense_cell, report, pm_report)
     keep.cleanup()
 
     # ---- 14. the scale run, as its script runs it
     scale_path(report)
 
     phase(f"[smoke] {time.perf_counter() - t_start:.3f} s")
-    print(json.dumps({"kernels": [report]}), flush=True)
+    print(json.dumps({"kernels": [report, pm_report]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def patch_match_kernel() -> dict:
+    """[pm-kernel]: build csrc/patch_match_cost.cu, then hold it to its
+    twin (`_set_cost_reference`) on the dense cell's shape, one colour of
+    the checkerboard at 640x480 with 8 sources, in both passes, on
+    `bench_patch_match.plane_problem` (texture in every window; the
+    sources' true depth maps as the geometric pass's input) at planes
+    near the truth (a third random): 1e-4 on 99.9% of the pixels, 1e-3 on
+    all, one launch a call. Prints each pass's time per call,
+    the call's float32 bound, the twin's time and the build seconds."""
+    t0 = time.perf_counter()
+    hpm.build()
+    build_s = cuda_build.build_seconds["patch_match_cost"]
+    phase(f"[pm-kernel] patch_match_cost built in {build_s:.3f} s "
+          f"({time.perf_counter() - t0:.3f} s with loading)")
+    n_src, (w, h) = 8, (640, 480)
+    problem, gt = bench_patch_match.plane_problem(h, w, n_src, seed=1,
+                                                  geom=True)
+    depth, normal = bench_patch_match.plane_candidates(problem, gt, seed=2)
+    report = {"name": "patch_match_cost", "route": "cuda",
+              "source": "colmap_tpu_torch/csrc/patch_match_cost.cu",
+              "replaces": None, "library_ms": None, "build_s": build_s,
+              "shapes": [], "launches_by_path": {}}
+    for geom in (False, True):
+        kind = "geometric" if geom else "photometric"
+        opts = pm.PatchMatchOptions(geom_consistency=geom)
+        pre = pm._precompute(problem, opts)
+        S = pm._checker_sets(pre)[0]
+        d = depth.reshape(-1)[S.idx]
+        nrm = normal.reshape(-1, 3)[S.idx]
+
+        def kernel():
+            return pm._set_cost(problem, pre, opts, S, d, nrm)
+
+        def twin():
+            return pm._set_cost_reference(problem, pre, opts, S, d, nrm)
+
+        before = hpm.launches
+        got = kernel()
+        if hpm.launches != before + 1:
+            fail(f"the {kind} cost took {hpm.launches - before} launches")
+        err = (got - twin()).abs()
+        within = float((err <= 1e-4).float().mean())
+        if within < 0.999 or float(err.max()) > 1e-3:
+            fail(f"cost kernel != twin ({kind}): {within:.6f} within 1e-4, "
+                 f"max {float(err.max()):.3e}")
+        ms = min(cuda_ms(kernel, 50), cuda_ms(kernel, 50))
+        twin_ms = cuda_ms(twin, 3)
+        n = int(S.idx.numel())
+        bound = bench_patch_match.cost_call_bound_ms(n, n_src, opts, geom)
+        report["shapes"].append({
+            "pass": kind, "width": w, "height": h, "pixels": n,
+            "sources": n_src, "ms": ms, "plain_ms": twin_ms,
+            "bound_ms": bound, "share": bound / ms, "within_1e4": within,
+            "max_abs_err": float(err.max())})
+        phase(f"[pm-kernel] {kind} {w}x{h}, one colour ({n} pixels), "
+              f"{n_src} sources: {within:.6f} within 1e-4 of the twin, max "
+              f"{float(err.max()):.3e}; kernel {ms:.4f} ms a call, twin "
+              f"{twin_ms:.4f} ms, bound {bound:.4f} ms (operations), share "
+              f"of bound {bound / ms:.4f}")
+    report.update(ms=report["shapes"][0]["ms"],
+                  plain_ms=report["shapes"][0]["plain_ms"],
+                  bound_ms=report["shapes"][0]["bound_ms"],
+                  bound_by="operations")
+    return report
 
 
 def main_path(work, report):
@@ -771,9 +856,33 @@ def hierarchical_path(report):
     db.close()
 
 
-def dense_path(work, report):
+def pm_calls_per_solve(opts: pm.PatchMatchOptions) -> int:
+    """`_set_cost` calls in one checkerboard solve at `opts`: the initial
+    costs (two colours), 4 + num_perturbations candidates a propagation
+    half-iteration on its colour, two candidates a refinement
+    half-iteration on each colour (86 at the defaults)."""
+    return (2 + 2 * opts.num_iterations * (4 + opts.num_perturbations)
+            + 2 * opts.num_refinement_iterations * 2 * 2)
+
+
+def check_pm_launches(tag, launches, maps, pm_report):
+    """The cost kernel launched once per `_set_cost` call of both passes'
+    `maps` solves each (the stereo defaults' options); recorded as the
+    path's count in the kernel's report."""
+    want = 2 * maps * pm_calls_per_solve(
+        dense.PatchMatchStereoOptions().patch_match)
+    pm_report["launches_by_path"][tag] = launches
+    phase(f"[{tag}] PatchMatch cost kernel launches {launches} for 2 x "
+          f"{maps} solves ({want} cost calls)")
+    if launches != want:
+        fail(f"{tag}: the cost kernel launched {launches} times for {want} "
+             f"cost calls")
+
+
+def dense_path(work, report, pm_report):
     """Phase 9 in the scratch directory `work`: the dense cell, pixels to
-    a fused cloud and a Poisson mesh."""
+    a fused cloud and a Poisson mesh, with the cost kernel's launch
+    counter zeroed just before and read just after."""
     t0 = time.perf_counter()
     ropts = synth.RoomDatasetOptions(num_images=DENSE_IMAGES, width=640,
                                      height=480, focal=560.0, seed=11)
@@ -787,9 +896,13 @@ def dense_path(work, report):
         camera_model="SIMPLE_RADIAL", single_camera=True, sparse=True,
         dense=True,
         camera_params=",".join(map(str, [K[0, 0], K[0, 2], K[1, 2], 0.0])))
+    hpm.launches = 0
     rec, db, st, launches = drive("dense", opts)
+    pm_launches = hpm.launches
     report["launches_by_path"]["dense"] = launches
     n_maps = st["patch_match_maps"]
+    check_pm_launches("dense", pm_launches, n_maps, pm_report)
+    pm_report["launches"] = pm_launches
     ids = {im["name"]: iid for iid, im in db.read_images().items()}
     dense_dir = os.path.join(opts.workspace_path, "dense")
     ucam = next(iter(reconstruction_io.read_model(
@@ -856,7 +969,7 @@ def _mesh_line(mesh):
             f"device(s) {sorted({str(d) for d in mesh.devices})}")
 
 
-def multi_path(dslr, dense_cell, report):
+def multi_path(dslr, dense_cell, report, pm_report):
     """Phase 13: the multi-device slice. The direct sharded steps (sharded
     matching of phase 4's block, the pose-sharded BA at the [ba] size) run
     on an explicit mesh of MULTI_SHARDS virtual shards of card 0; the entry
@@ -1037,15 +1150,18 @@ def multi_path(dslr, dense_cell, report):
             os.remove(os.path.join(ws, "stereo", sub, f))
     timings = {}
     _zero_counts()
+    hpm.launches = 0
     t0 = time.perf_counter()
     dense.run_patch_match_stereo(ws, dense.PatchMatchStereoOptions(
         num_devices=2, max_image_size=MULTI_PATCH_MATCH_SIZE),
         device="cuda", timings=timings)
+    pm_launches = hpm.launches
     _step(f"run_patch_match_stereo(num_devices=2) at "
           f"{MULTI_PATCH_MATCH_SIZE} px, "
           f"{_mesh_line(pmesh.make_mesh(2, 'cuda'))}: {timings['maps']} maps, "
           f"photometric {timings['photometric']:.3f} s, geometric "
           f"{timings['geometric']:.3f} s", t0)
+    check_pm_launches("multi", pm_launches, timings["maps"], pm_report)
     check_depth_maps(dense_cell["rec"], dense_cell["gt"], ws,
                      dense_cell["room_size"], "multi")
     phase(f"[multi] phase {time.perf_counter() - t_phase:.3f} s")

@@ -45,6 +45,23 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM, published, at a 700 W power limit
 # 3 adds: 17), the weighted products (6) and the seven running sums (7);
 # the compares of the in-image test are not counted
 FLOPS_PER_TAP = 3 + 2 + 4 + 17 + 6 + 7
+# per source in _geom_cost: the point into the source (R X + t: 18), its
+# projection (15) and division (2, clamp 1), the bilinear depth sample
+# (17), the back-projected ray (15) scaled by the depth less t (6), back
+# into the reference (R^T: 15), its projection (15, clamp 1, 2 divisions),
+# the pixel distance (6), the clamp and mask (2), and the regulariser's
+# multiply-add (2)
+GEOM_FLOPS_PER_SOURCE = 18 + 15 + 3 + 17 + 15 + 6 + 15 + 18 + 6 + 2 + 2
+# one `_set_cost` call's own count, which its kernel's bound takes (the
+# solve's bound above counts the twin's operations): per pixel, source and
+# tap the affine warp (3 adds), two quotients, the bilinear sample (17),
+# the source sample's three weighted products (w v, w v v, w r v) and the
+# seven sums; per pixel and tap, shared by the sources, the reference
+# tap's bilateral weight (r - r_c, its square and scale, exp, the spatial
+# factor: 5) and w r, w r r (2); the per-source NCC from the sums (~16
+# against 121 taps) is not counted
+CALL_FLOPS_PER_SOURCE_TAP = 3 + 2 + 17 + 3 + 7
+CALL_FLOPS_PER_TAP = 5 + 2
 
 
 def build(width: int, height: int, n_src: int, device="cuda"):
@@ -70,6 +87,111 @@ def build(width: int, height: int, n_src: int, device="cuda"):
     return problem, gt
 
 
+def _rotation(rng, degrees: float) -> np.ndarray:
+    """A rotation by `degrees` about a random axis."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    a = np.deg2rad(degrees)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k
+
+
+def plane_problem(height: int, width: int, n_src: int, device="cuda",
+                  seed: int = 0, geom: bool = False):
+    """A problem whose every window has texture, at any size and source
+    count: a tilted plane 3 m away, textured by 24 random sinusoids (0.3 to
+    12 cycles a metre up to a width of 640, proportionally finer above, so
+    that a window holds as much texture at any size), seen by the
+    reference camera (focal 0.9 x width)
+    and `n_src` sources turned 2-5 degrees and moved up to 0.4 m, with 1%
+    pixel noise. Returns (PatchMatchProblem on `device`, true depth [H, W]);
+    with `geom`, the sources' true depth maps, a tenth of their pixels
+    zeroed as if filtered, are its `src_depths`."""
+    h, w = height, width
+    rng = np.random.default_rng(seed)
+    f = 0.9 * w
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    D = 3.0
+    dev = torch.device(device)
+    f64 = torch.float64
+
+    def t64(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev)
+
+    g = t64([0.15, -0.1, 1.0])  # the plane g . X = D
+    cycles = rng.uniform(0.3, 12.0, (24, 1)) * max(1.0, w / 640)
+    direction = rng.normal(size=(24, 2))
+    freq = t64(cycles * direction
+               / np.linalg.norm(direction, axis=-1, keepdims=True))
+    phase = t64(rng.uniform(0, 2 * np.pi, 24))
+    amp = t64(rng.uniform(0.5, 1.0, 24) / np.sqrt(24))
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=f64),
+                            torch.arange(w, device=dev, dtype=f64),
+                            indexing="ij")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def image(R, t, centre):
+        """Intensity and depth of the plane seen by the camera (R, t),
+        pixel (x, y) on the ray through (x + centre, y + centre)."""
+        q = torch.stack([xs + centre, ys + centre, torch.ones_like(xs)], -1)
+        rr = q @ t64(np.linalg.inv(K).T) @ t64(R)  # R^T K^-1 q, row form
+        c = t64(R.T @ t)
+        lam = (D + g @ c) / (rr @ g)
+        X = lam[..., None] * rr - c
+        tex = (amp * torch.sin(2 * np.pi * (X[..., :2] @ freq.T)
+                               + phase)).sum(-1)
+        noise = torch.randn(tex.shape, generator=gen, device=dev, dtype=f64)
+        return (0.5 + 0.25 * tex + 0.01 * noise).clamp(0, 1), lam
+
+    # the solver's rays pass through the reference pixels' centres (+0.5)
+    # and it samples a source at its pixel coordinates (the JAX sampler's)
+    ref, gt = image(np.eye(3), np.zeros(3), 0.5)
+    srcs, depths, Rs, ts = [], [], [], []
+    for _ in range(n_src):
+        R = _rotation(rng, rng.uniform(2, 5))
+        t = rng.uniform(-0.4, 0.4, 3) * [1, 0.5, 0.25]
+        img, lam = image(R, t, 0.0)
+        keep = torch.rand(lam.shape, generator=gen, device=dev) > 0.1
+        srcs.append(img)
+        depths.append(lam * keep)
+        Rs.append(R)
+        ts.append(t)
+
+    def put(x):
+        return t64(x).to(torch.float32) if not torch.is_tensor(x) \
+            else x.to(torch.float32)
+
+    problem = pm.PatchMatchProblem(
+        ref_image=put(ref), src_images=put(torch.stack(srcs)), K_ref=put(K),
+        K_src=put(np.stack([K] * n_src)), R_rel=put(np.stack(Rs)),
+        t_rel=put(np.stack(ts)), depth_min=put(float(gt.min()) * 0.7),
+        depth_max=put(float(gt.max()) * 1.3),
+        src_depths=put(torch.stack(depths)) if geom else None)
+    return problem, gt.to(torch.float32)
+
+
+def plane_candidates(problem, gt: torch.Tensor, seed: int):
+    """Planes to evaluate on a `plane_problem`: depths within 2% of the
+    truth (a third drawn anywhere in the depth range), normals half near the
+    plane's and half random, all facing the camera; (depth [H, W], normal
+    [H, W, 3]) on the problem's device."""
+    gen = torch.Generator(device=gt.device).manual_seed(seed)
+    h, w = gt.shape
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=gt.device)
+
+    lo, hi = float(problem.depth_min), float(problem.depth_max)
+    depth = torch.where(rand(h, w) < 1 / 3, lo + (hi - lo) * rand(h, w),
+                        gt * (0.98 + 0.04 * rand(h, w)))
+    true_n = -torch.tensor([0.15, -0.1, 1.0], device=gt.device)
+    noise = torch.randn((h, w, 3), generator=gen, device=gt.device)
+    normal = torch.where(rand(h, w, 1) < 0.5, true_n + 0.05 * noise,
+                         noise + torch.tensor([0, 0, -3.0], device=gt.device))
+    return depth, normal / normal.norm(dim=-1, keepdim=True)
+
+
 def cost_evaluations(opts: pm.PatchMatchOptions) -> int:
     """Whole-image equivalents of the cost one solve evaluates."""
     return (1 + opts.num_iterations * (4 + opts.num_perturbations)
@@ -82,6 +204,17 @@ def bound_ms(width: int, height: int, n_src: int,
     flops = (width * height * cost_evaluations(opts) * n_src * taps
              * FLOPS_PER_TAP)
     return flops / FP32_FLOPS_PER_S * 1e3
+
+
+def cost_call_bound_ms(pixels: int, n_src: int, opts: pm.PatchMatchOptions,
+                       geometric: bool) -> float:
+    """The least time one `_set_cost` call over `pixels` pixels could take
+    (its float32 operations over the float32 peak)."""
+    taps = (2 * opts.window_radius // opts.window_step + 1) ** 2
+    per = taps * (n_src * CALL_FLOPS_PER_SOURCE_TAP + CALL_FLOPS_PER_TAP)
+    if geometric:
+        per += n_src * GEOM_FLOPS_PER_SOURCE
+    return pixels * per / FP32_FLOPS_PER_S * 1e3
 
 
 def solve(problem, opts, seed=0):

@@ -22,6 +22,14 @@ is the JAX module's, not the reference's sequential sweep:
   term (forward-backward reprojection against the source depth maps) and
   the NCC filter.
 
+On CUDA tensors the cost of a pixel set (`_set_cost`) is one launch of
+the hand-written kernel csrc/patch_match_cost.cu (`hopper_patch_match`),
+which computes the warp, the samples, the NCC over all sources, the
+geometric term and the top-k without any [sources, pixels, taps]
+temporary; the torch code here, `_set_cost_reference`, is its plain twin
+and runs on CPU tensors. The per-solve constants of the cost (the warp's
+A and b, K_src^-1, the taps' spatial weights) come from `_precompute`.
+
 The JAX solver evaluates every candidate over the whole image and masks
 the inactive colour. Costs are independent per pixel, so here a
 propagation candidate is evaluated only on the active colour
@@ -42,6 +50,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from colmap_tpu_torch.mvs import hopper_patch_match
 from colmap_tpu_torch.util.timer import span
 
 _F32 = torch.float32
@@ -177,7 +186,14 @@ class _Precomp(NamedTuple):
     ref_patch: torch.Tensor  # [H, W, P]
     bil_w: torch.Tensor  # [H, W, P]
     offs: torch.Tensor  # [P, 2] (oy, ox)
-    Kinv: torch.Tensor  # [3, 3]
+    Kinv: torch.Tensor  # [3, 3] K_ref^-1
+    # the per-solve constants of the cost: the taps' spatial weights, the
+    # warp's A = K_src R K_ref^-1 and b = K_src t, and K_src^-1 for the
+    # geometric term
+    spatial_w: torch.Tensor  # [P]
+    A: torch.Tensor  # [S, 3, 3]
+    b: torch.Tensor  # [S, 3]
+    Ksrc_inv: torch.Tensor  # [S, 3, 3]
 
 
 def _pixel_grid(h: int, w: int, device):
@@ -215,9 +231,14 @@ def _precompute(problem: PatchMatchProblem,
                      else float(opts.window_radius))
     sp = np.exp(-(offsets[:, 0] ** 2 + offsets[:, 1] ** 2)
                 / (2 * sigma_spatial ** 2)).astype(np.float32)
-    bil_w = col * torch.as_tensor(sp, device=dev) * inb
-    return _Precomp(rays=rays, pix=pix, ref_patch=ref_patch, bil_w=bil_w,
-                    offs=offs, Kinv=Kinv)
+    spatial_w = torch.as_tensor(sp, device=dev)
+    bil_w = col * spatial_w * inb
+    return _Precomp(
+        rays=rays, pix=pix, ref_patch=ref_patch, bil_w=bil_w, offs=offs,
+        Kinv=Kinv.contiguous(), spatial_w=spatial_w,
+        A=problem.K_src @ problem.R_rel @ Kinv,
+        b=(problem.K_src @ problem.t_rel[..., None])[..., 0],
+        Ksrc_inv=torch.linalg.inv(problem.K_src).contiguous())
 
 
 class _PixelSet(NamedTuple):
@@ -273,7 +294,9 @@ def _photometric_cost(problem, S: _PixelSet, A, b, m, inv_ndotX, window):
     H q = base + ox * gx + oy * gy, with base, gx, gy per pixel. The taps
     of a window row share base + ox * gx, so a chunk of rows costs one add
     per component; the source is sampled by grid_sample (bilinear, zero
-    outside, corners aligned to pixel centres: the JAX sampler's values)."""
+    outside, corners aligned to pixel centres: the JAX sampler's values).
+    It computes in the images' dtype: float32 on the solver's path, float64
+    for a witness of its rounding."""
     src = problem.src_images
     ns, h, w = src.shape
     n = S.px.shape[0]
@@ -303,7 +326,8 @@ def _photometric_cost(problem, S: _PixelSet, A, b, m, inv_ndotX, window):
     # the tap at offset (0, 0): the JAX solver's padding taps read it
     z0 = clamp_z(base[2].clone())
     valid0 = in_source(torch.stack(base[:2], -1) / z0[..., None], z0)
-    sums = [torch.zeros((ns, n), dtype=_F32, device=dev) for _ in range(7)]
+    sums = [torch.zeros((ns, n), dtype=src.dtype, device=dev)
+            for _ in range(7)]
     rows = max(1, min(ny, _CHUNK_ELEMS // max(ns * n * nx, 1)))
     # (x, y) interleaved, as grid_sample takes them: [S, N, nx, 2] per row
     row_xy = (torch.stack(base[:2], -1)[:, :, None]
@@ -318,7 +342,7 @@ def _photometric_cost(problem, S: _PixelSet, A, b, m, inv_ndotX, window):
         # the source pixels (sx, sy), then in place grid_sample's [-1, 1]
         sxy = (row_xy[:, :, None] + oy_r[..., None] * gy_xy[:, :, None, None]
                ).reshape(ns, n, -1, 2).div_(z[..., None])
-        valid = in_source(sxy, z).to(_F32)
+        valid = in_source(sxy, z).to(src.dtype)
         v = torch.nn.functional.grid_sample(
             src[:, None], sxy.mul_(scale).sub_(1), mode="bilinear",
             padding_mode="zeros", align_corners=True)[:, 0]
@@ -338,7 +362,7 @@ def _photometric_cost(problem, S: _PixelSet, A, b, m, inv_ndotX, window):
         sums[5] += wr.mul_(v).sum(-1)
     sw, s_r, s_rr, s_v, s_vv, s_rv, s_n = sums
     P = ny * nx
-    s_n = s_n + (-P % _JAX_TAP_CHUNK) * valid0.to(_F32)
+    s_n = s_n + (-P % _JAX_TAP_CHUNK) * valid0.to(src.dtype)
     sw = torch.clamp(sw, min=1e-6)
     mu_r = s_r / sw
     mu_s = s_v / sw
@@ -347,11 +371,14 @@ def _photometric_cost(problem, S: _PixelSet, A, b, m, inv_ndotX, window):
     cov = s_rv / sw - mu_r * mu_s
     ncc = cov * torch.rsqrt(torch.clamp(var_r * var_s, min=1e-10))
     cost = torch.clamp(1.0 - ncc, 0.0, 2.0)
-    return torch.where((s_n / P > 0.5) & (var_r > 1e-8), cost,
+    # s_n / P > 0.5 as 2 s_n > P: the same on the CPU (s_n and P are whole
+    # numbers), exact on CUDA, where a division by a number is a product
+    # with its rounded reciprocal
+    return torch.where((s_n * 2 > P) & (var_r > 1e-8), cost,
                        torch.full_like(cost, 2.0))
 
 
-def _geom_cost(problem, X, px, py, opts):
+def _geom_cost(problem, Ksrc_inv, X, px, py, opts):
     """Forward-backward reprojection error [S, N] vs the source depth maps
     (reference: LikelihoodComputer, patch_match_cuda.cu:656). X: the
     reference-camera points as 3 component tensors [N]."""
@@ -364,7 +391,7 @@ def _geom_cost(problem, X, px, py, opts):
     d_src, inb = zip(*(_bilinear(d, y, x) for d, y, x in
                        zip(problem.src_depths, sy, sx)))
     d_src, inb = torch.stack(d_src), torch.stack(inb)
-    q = _mat3(torch.linalg.inv(problem.K_src), [sx, sy, torch.ones_like(sx)])
+    q = _mat3(Ksrc_inv, [sx, sy, torch.ones_like(sx)])
     d = [q[c] * d_src - t[:, c, None] for c in range(3)]
     # X_ref = R^T (Xs_hat - t)
     X_ref = _mat3(R.transpose(-1, -2), d)
@@ -389,26 +416,39 @@ def _set_cost(problem: PatchMatchProblem, pre: _Precomp,
     """The aggregated cost [N] of the planes (depth [N], normal [N, 3]) at
     the pixels of S: per source the photometric cost (+ the weighted
     geometric term), then the mean of the top_k lowest. One span,
-    `patch_match.cost`, per call."""
+    `patch_match.cost`, per call. CUDA tensors go through the fused kernel
+    (`hopper_patch_match`, one launch), CPU tensors through the plain twin
+    `_set_cost_reference`."""
     with span("patch_match.cost"):
-        X = [depth * S.rays[:, c] for c in range(3)]
-        ndotX = (normal[:, 0] * X[0] + normal[:, 1] * X[1]
-                 + normal[:, 2] * X[2])
-        ndotX = torch.where(torch.abs(ndotX) < 1e-9,
-                            torch.full_like(ndotX, 1e-9), ndotX)
-        # m = K1^-T n, row vector form n @ K1^-1
-        Kinv = pre.Kinv
-        m = [normal[:, 0] * Kinv[0, c] + normal[:, 1] * Kinv[1, c]
-             + normal[:, 2] * Kinv[2, c] for c in range(3)]
-        A = problem.K_src @ problem.R_rel @ Kinv
-        b = (problem.K_src @ problem.t_rel[..., None])[..., 0]
-        costs = _photometric_cost(problem, S, A, b, m, 1.0 / ndotX,
-                                  _window(opts))
-        if opts.geom_consistency and problem.src_depths is not None:
-            costs = costs + opts.geom_consistency_regularizer * _geom_cost(
-                problem, X, S.px, S.py, opts)
-        k = min(opts.top_k, costs.shape[0])
-        return torch.topk(costs, k, dim=0, largest=False).values.mean(0)
+        if depth.is_cuda:
+            return hopper_patch_match.set_cost(problem, pre, opts, S.idx,
+                                               depth, normal)
+        if depth.device.type != "cpu":
+            raise ValueError(f"no PatchMatch cost for device {depth.device}")
+        return _set_cost_reference(problem, pre, opts, S, depth, normal)
+
+
+def _set_cost_reference(problem: PatchMatchProblem, pre: _Precomp,
+                        opts: PatchMatchOptions, S: _PixelSet,
+                        depth: torch.Tensor,
+                        normal: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch twin of the cost kernel, on any device."""
+    X = [depth * S.rays[:, c] for c in range(3)]
+    ndotX = (normal[:, 0] * X[0] + normal[:, 1] * X[1]
+             + normal[:, 2] * X[2])
+    ndotX = torch.where(torch.abs(ndotX) < 1e-9,
+                        torch.full_like(ndotX, 1e-9), ndotX)
+    # m = K1^-T n, row vector form n @ K1^-1
+    Kinv = pre.Kinv
+    m = [normal[:, 0] * Kinv[0, c] + normal[:, 1] * Kinv[1, c]
+         + normal[:, 2] * Kinv[2, c] for c in range(3)]
+    costs = _photometric_cost(problem, S, pre.A, pre.b, m, 1.0 / ndotX,
+                              _window(opts))
+    if opts.geom_consistency and problem.src_depths is not None:
+        costs = costs + opts.geom_consistency_regularizer * _geom_cost(
+            problem, pre.Ksrc_inv, X, S.px, S.py, opts)
+    k = min(opts.top_k, costs.shape[0])
+    return torch.topk(costs, k, dim=0, largest=False).values.mean(0)
 
 
 def _cost_fn(problem: PatchMatchProblem, pre: _Precomp,
