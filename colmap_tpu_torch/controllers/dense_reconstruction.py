@@ -20,7 +20,8 @@ robin over a device mesh (`num_devices`). Workspace layout
 What an operator reads: the seconds `run_patch_match_stereo` puts in its
 `timings` dict, and the Chrome trace that `util.timer.trace(log_dir)`
 writes around a call, where the job's spans show as ranges:
-`dense.patch_match_stereo` (the job), `dense.load_workspace`, one
+`dense.patch_match_stereo` (the job), `dense.load_workspace` (inside:
+`dense.read_model`, `dense.build_model`, `dense.read_images`), one
 `dense.pass` per pass, per problem `dense.upload`, `dense.solve` and
 `dense.fetch`, then `dense.write_maps`; inside each solve the solver's
 own (`mvs/patch_match.py`).
@@ -67,24 +68,28 @@ def _load_workspace(workspace_path: str, max_image_size: int = -1):
     downscaled to max_image_size (reference: Workspace options
     max_image_size, mvs/workspace.h: stereo runs at the reduced
     resolution, with the calibration scaled to match)."""
-    model = model_mod.build_model(
-        reconstruction_io.read_model(os.path.join(workspace_path, "sparse")))
+    with timer.span("dense.read_model"):
+        rec = reconstruction_io.read_model(
+            os.path.join(workspace_path, "sparse"))
+    with timer.span("dense.build_model"):
+        model = model_mod.build_model(rec)
     images = {}
-    for iid, im in model.images.items():
-        path = os.path.join(workspace_path, "images", im.name)
-        data = bitmap_mod.read_bitmap(path).data
-        if max_image_size > 0 and max(data.shape[:2]) > max_image_size:
-            s = max_image_size / max(data.shape[:2])
-            nh = max(int(round(data.shape[0] * s)), 1)
-            nw = max(int(round(data.shape[1] * s)), 1)
-            data = np.asarray(PILImage.fromarray(
-                (data * 255).astype(np.uint8)).resize(
-                    (nw, nh), PILImage.BILINEAR), np.float32) / 255.0
-            # continuous pixel coords scale exactly: K' = diag(sx, sy, 1) K
-            sy, sx = nh / im.height, nw / im.width
-            im.K = np.diag([sx, sy, 1.0]) @ im.K
-            im.width, im.height = nw, nh
-        images[iid] = data
+    with timer.span("dense.read_images"):
+        for iid, im in model.images.items():
+            path = os.path.join(workspace_path, "images", im.name)
+            data = bitmap_mod.read_bitmap(path).data
+            if max_image_size > 0 and max(data.shape[:2]) > max_image_size:
+                s = max_image_size / max(data.shape[:2])
+                nh = max(int(round(data.shape[0] * s)), 1)
+                nw = max(int(round(data.shape[1] * s)), 1)
+                data = np.asarray(PILImage.fromarray(
+                    (data * 255).astype(np.uint8)).resize(
+                        (nw, nh), PILImage.BILINEAR), np.float32) / 255.0
+                # continuous pixel coords scale exactly: K' = diag(sx, sy, 1) K
+                sy, sx = nh / im.height, nw / im.width
+                im.K = np.diag([sx, sy, 1.0]) @ im.K
+                im.width, im.height = nw, nh
+            images[iid] = data
     return model, images
 
 

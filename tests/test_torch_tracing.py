@@ -14,7 +14,8 @@ path, on the CPU.
   defaults);
 - `run_patch_match_stereo` on one device and on a 2-shard CPU mesh: every
   `dense.solve` span's parent chain reaches its job root, and `timings`
-  equals the spans' seconds and counts;
+  equals the spans' seconds and counts; the workspace load holds one
+  `dense.read_model`, `dense.build_model` and `dense.read_images` each;
 - the span metrics' readers on a job recorded by hand, the launch-share
   reader on a made-up trace, and the dense cell at
   benchmark/tests/test_cells_cpu.py's tiny size with `--trace 1` (in a
@@ -316,6 +317,22 @@ def test_dense_timings_inside_a_callers_span(workspace):
     assert (timings["load"], timings["write"]) == (load.seconds,
                                                    write.seconds)
     assert timings["maps"] == len(depths) == 3
+
+
+def test_the_workspace_load_has_its_parts(workspace):
+    _run_small_job(workspace, {})
+    spans = timer.last_job("dense.patch_match_stereo")
+    (load,) = [s for s in spans if s.name == "dense.load_workspace"]
+    parts = sorted((s for s in spans if s.parent == load.id),
+                   key=lambda s: s.start)
+    assert [s.name for s in parts] == ["dense.read_model", "dense.build_model",
+                                       "dense.read_images"]
+    names = collections.Counter(s.name for s in spans)
+    assert all(names[s.name] == 1 for s in parts)
+    assert load.start <= parts[0].start
+    assert all(a.end <= b.start for a, b in zip(parts, parts[1:]))
+    assert parts[-1].end <= load.end
+    assert all(s.seconds > 0 for s in parts)
 
 
 def test_dense_timings_when_the_job_overflows_the_ring(workspace,
