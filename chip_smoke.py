@@ -45,10 +45,18 @@ with Cartesian position priors. Phases:
    an unfused route, which the port never calls);
 3b. [pm-kernel]: builds the PatchMatch cost kernel
    (csrc/patch_match_cost.cu) and holds it to its plain twin on the dense
-   cell's shape (640x480, one checkerboard colour, 8 sources, a textured
-   plane from bench_patch_match.plane_problem) in both passes: 1e-4 on
-   99.9% of the costs, 1e-3 on all, one launch a call; prints its time a
-   call, the call's float32 bound, the twin's time and the build seconds;
+   cell's shape (640x480, 8 sources, a textured plane from
+   bench_patch_match.plane_problem) in both passes, one launch of each
+   kind the solver makes (`_keep_better`: the initial costs on both
+   colours, a propagation half-iteration's 6 candidates on one colour, a
+   refinement half-iteration's 2 on both colours, the masked whole-image
+   form) against `_keep_better_reference` on copies of the same inputs:
+   costs 1e-4 on 99.9% of the pixels, 1e-3 on all, the same NaN pixels,
+   the held plane kept outside the launch, the mask and at NaN held costs,
+   and the twin's kept candidate wherever its costs do not tie (2e-3);
+   prints the twin's time and the build seconds, then the time of one
+   launch of each kind (initial costs, propagation, refinement) with its
+   bound; the headline is the photometric propagation launch's;
 4. DSLR main path: run_automatic_reconstruction(sparse=True) on cuda, with
    the kernel launch counter zeroed just before it and read just after;
    prints the extraction, matching and mapping seconds, the mapper's stage
@@ -94,8 +102,10 @@ with Cartesian position priors. Phases:
    A cluster that raises fails the phase.
 9. dense: run_automatic_reconstruction(sparse=True, dense=True) on cuda,
    the launch counters of K1 and of the cost kernel zeroed just before and
-   read just after (K1 runs in its sparse stage; the cost kernel once per
-   `_set_cost` call, 2 x 86 x maps, or the phase fails); prints the sparse stages, the seconds of
+   read just after (K1 runs in its sparse stage; the cost kernel once at
+   init and once per half-iteration, 2 x 17 x maps launches, evaluating
+   2 x 43 x H x W planes a map, or the phase fails); prints the sparse
+   stages, the seconds of
    undistortion, both PatchMatch passes, fusion and meshing, PatchMatch
    seconds per map and Mpix/s per pass and the peak device memory. Held,
    in the render's frame after a Sim3 alignment of the model: all 12
@@ -175,7 +185,8 @@ with Cartesian position priors. Phases:
    run_patch_match_stereo with num_devices=2 at max_image_size 256 on
    phase 9's workspace, held to phase 9's depth gates (every map written,
    >= 40% estimated, median distance to the room < 0.03 x room size) and
-   to one cost-kernel launch per `_set_cost` call (2 x 86 x maps).
+   to one cost-kernel launch at init and per half-iteration (2 x 17 x
+   maps) and 2 x 43 x H x W plane evaluations a map.
 14. [scale]: colmap_tpu_torch.scripts.scale_run.main in this process on
    cuda, --mode incremental, at SCALE_IMAGES images with the script's
    widths (20 points per image, each seen by 40 consecutive cameras,
@@ -401,14 +412,26 @@ def main():
 
 
 def patch_match_kernel() -> dict:
-    """[pm-kernel]: build csrc/patch_match_cost.cu, then hold it to its
-    twin (`_set_cost_reference`) on the dense cell's shape, one colour of
-    the checkerboard at 640x480 with 8 sources, in both passes, on
-    `bench_patch_match.plane_problem` (texture in every window; the
-    sources' true depth maps as the geometric pass's input) at planes
-    near the truth (a third random): 1e-4 on 99.9% of the pixels, 1e-3 on
-    all, one launch a call. Prints each pass's time per call,
-    the call's float32 bound, the twin's time and the build seconds."""
+    """[pm-kernel]: build csrc/patch_match_cost.cu, then hold each kind of
+    launch the solver makes (`pm._keep_better`: the initial planes on both
+    colours, a propagation half-iteration's 6 candidates on one colour, a
+    refinement half-iteration's 2 candidates on both colours, the masked
+    whole-image form of active_half=False) to its twin
+    `pm._keep_better_reference` on copies of the same inputs, on the dense
+    cell's shape (640x480, 8 sources, `bench_patch_match.plane_problem`:
+    texture in every window, the sources' true depth maps as the geometric
+    pass's input; planes near the truth, a third random; held costs the
+    held planes' own, every 97th NaN), in both passes; one launch a call.
+    Costs within 1e-4 on 99.9% of the launch's pixels, 1e-3 on all, NaN at
+    the same pixels; every pixel holds its held plane or a candidate, bit
+    for bit; pixels outside the launch, outside the mask or with a NaN held
+    cost keep their plane and cost; and the kept candidate is the twin's
+    wherever the twin's costs of the two choices lie more than 2e-3 apart
+    (two costs each within 1e-3 of the twin's can swap their order only
+    closer than that). Prints each check, the twin's time, the build
+    seconds and, from `bench_patch_match.launch_times`, each kind's time
+    and bound; the report's headline (ms, bound_ms, plain_ms) is the
+    photometric propagation launch's."""
     t0 = time.perf_counter()
     hpm.build()
     build_s = cuda_build.build_seconds["patch_match_cost"]
@@ -417,53 +440,151 @@ def patch_match_kernel() -> dict:
     n_src, (w, h) = 8, (640, 480)
     problem, gt = bench_patch_match.plane_problem(h, w, n_src, seed=1,
                                                   geom=True)
-    depth, normal = bench_patch_match.plane_candidates(problem, gt, seed=2)
+    planes = [bench_patch_match.plane_candidates(problem, gt, seed=2 + j)
+              for j in range(7)]
+    held_d, held_n = planes[0]
+    cand_d = torch.stack([p[0] for p in planes[1:]])
+    cand_n = torch.stack([p[1] for p in planes[1:]])
+    ys, xs = pm._pixel_grid(h, w, gt.device)
+    colour0 = ((ys + xs) % 2) == 0
     report = {"name": "patch_match_cost", "route": "cuda",
               "source": "colmap_tpu_torch/csrc/patch_match_cost.cu",
               "replaces": None, "library_ms": None, "build_s": build_s,
-              "shapes": [], "launches_by_path": {}}
+              "shapes": [], "launches_by_path": {},
+              "evaluations_by_path": {}}
     for geom in (False, True):
-        kind = "geometric" if geom else "photometric"
         opts = pm.PatchMatchOptions(geom_consistency=geom)
         pre = pm._precompute(problem, opts)
-        S = pm._checker_sets(pre)[0]
-        d = depth.reshape(-1)[S.idx]
-        nrm = normal.reshape(-1, 3)[S.idx]
-
-        def kernel():
-            return pm._set_cost(problem, pre, opts, S, d, nrm)
-
-        def twin():
-            return pm._set_cost_reference(problem, pre, opts, S, d, nrm)
-
-        before = hpm.launches
-        got = kernel()
-        if hpm.launches != before + 1:
-            fail(f"the {kind} cost took {hpm.launches - before} launches")
-        err = (got - twin()).abs()
-        within = float((err <= 1e-4).float().mean())
-        if within < 0.999 or float(err.max()) > 1e-3:
-            fail(f"cost kernel != twin ({kind}): {within:.6f} within 1e-4, "
-                 f"max {float(err.max()):.3e}")
-        ms = min(cuda_ms(kernel, 50), cuda_ms(kernel, 50))
-        twin_ms = cuda_ms(twin, 3)
-        n = int(S.idx.numel())
-        bound = bench_patch_match.cost_call_bound_ms(n, n_src, opts, geom)
-        report["shapes"].append({
-            "pass": kind, "width": w, "height": h, "pixels": n,
-            "sources": n_src, "ms": ms, "plain_ms": twin_ms,
-            "bound_ms": bound, "share": bound / ms, "within_1e4": within,
-            "max_abs_err": float(err.max())})
-        phase(f"[pm-kernel] {kind} {w}x{h}, one colour ({n} pixels), "
-              f"{n_src} sources: {within:.6f} within 1e-4 of the twin, max "
-              f"{float(err.max()):.3e}; kernel {ms:.4f} ms a call, twin "
-              f"{twin_ms:.4f} ms, bound {bound:.4f} ms (operations), share "
-              f"of bound {bound / ms:.4f}")
-    report.update(ms=report["shapes"][0]["ms"],
-                  plain_ms=report["shapes"][0]["plain_ms"],
-                  bound_ms=report["shapes"][0]["bound_ms"],
-                  bound_by="operations")
+        sets = pm._checker_sets(pre)
+        whole = [pm._pixel_set(pre, torch.arange(h * w, device=gt.device))]
+        held_c = torch.empty((h, w), device=gt.device)
+        pm._keep_better(problem, pre, opts, sets, held_d[None], held_n[None],
+                        held_c)
+        held_c.view(-1)[::97] = float("nan")
+        for kind, kind_sets, c, active in (
+                ("init", sets, 1, None), ("propagation", sets[1:], 6, None),
+                ("refinement", sets, 2, None), ("masked", whole, 6, colour0)):
+            report["shapes"].append(pm_launch_against_twin(
+                problem, pre, opts, kind, kind_sets, cand_d[:c].contiguous(),
+                cand_n[:c].contiguous(), held_d, held_n, held_c, active))
+    report["launch_kinds"] = bench_patch_match.launch_times()
+    for k in report["launch_kinds"]:
+        phase(f"[pm-kernel] {'geometric' if k['geometric'] else 'photometric'}"
+              f" {k['kind']} launch, {k['candidates']} candidates on "
+              f"{k['pixels']} pixels: {k['ms']:.4f} ms, "
+              f"{k['ns_per_evaluation']:.4f} ns a plane evaluation, bound "
+              f"{k['bound_ms']:.4f} ms, share of bound {k['share']:.4f}")
+    head = next(k for k in report["launch_kinds"]
+                if k["kind"] == "propagation" and not k["geometric"])
+    twin = next(k for k in report["shapes"]
+                if k["kind"] == "propagation" and k["pass"] == "photometric")
+    report.update(ms=head["ms"], plain_ms=twin["plain_ms"],
+                  bound_ms=head["bound_ms"], bound_by="operations")
     return report
+
+
+def pm_launch_against_twin(problem, pre, opts, kind, sets, cand_d, cand_n,
+                           held_d, held_n, held_c, active):
+    """One `pm._keep_better` launch of `kind` against
+    `pm._keep_better_reference` on copies of the same inputs (the initial
+    planes: the held planes as the one candidate and no held plane); fails
+    on any check of `patch_match_kernel`, else returns the readings."""
+    geom = opts.geom_consistency
+    label = f"{'geometric' if geom else 'photometric'} {kind}"
+    h, w = held_d.shape
+    init = kind == "init"
+    if init:
+        cand_d, cand_n = held_d[None], held_n[None]
+
+    def fresh():
+        if init:
+            return (torch.full((h, w), -1.0, device=held_d.device),)
+        return held_c.clone(), held_d.clone(), held_n.clone()
+
+    def launch(fn, state):
+        fn(problem, pre, opts, sets, cand_d, cand_n, *state, active=active)
+
+    got, ref = fresh(), fresh()
+    before, evals = hpm.launches, hpm.evaluations
+    launch(pm._keep_better, got)
+    pixels = sum(int(S.idx.numel()) for S in sets)
+    if (hpm.launches - before, hpm.evaluations - evals) != (
+            1, pixels * cand_d.shape[0]):
+        fail(f"{label}: {hpm.launches - before} launches and "
+             f"{hpm.evaluations - evals} evaluations for one launch of "
+             f"{pixels * cand_d.shape[0]}")
+    launch(pm._keep_better_reference, ref)
+    scratch = fresh()
+    twin_ms = cuda_ms(lambda: launch(pm._keep_better_reference, scratch), 3)
+    inside = torch.zeros(h * w, dtype=torch.bool, device=held_d.device)
+    for S in sets:
+        inside[S.idx] = True
+    inside = inside.view(h, w)
+    c_got, c_ref = got[0], ref[0]
+    if not torch.equal(c_got.isnan(), c_ref.isnan()):
+        fail(f"{label}: the kernel's and the twin's costs are NaN at "
+             f"different pixels")
+    err = (c_got - c_ref).abs()[inside & ~c_got.isnan()]
+    within = float((err <= 1e-4).float().mean())
+    max_err = float(err.max())
+    if within < 0.999 or max_err > 1e-3:
+        fail(f"{label}: costs {within:.6f} within 1e-4 of the twin, max "
+             f"{max_err:.3e}")
+    if init:
+        if not bool((c_got[~inside] == -1).all()):
+            fail(f"{label}: costs written outside the launch's pixels")
+        changed = swaps = 0.0
+    else:
+        keep = ~inside | held_c.isnan()
+        if active is not None:
+            keep |= ~active
+        # the twin's cost of each choice at each pixel, the held plane's
+        # first
+        choice_cost = held_c.expand(cand_d.shape[0] + 1, h, w).clone()
+        for j in range(cand_d.shape[0]):
+            for S in sets:
+                choice_cost[j + 1].view(-1)[S.idx] = pm._set_cost_reference(
+                    problem, pre, opts, S, cand_d[j].view(-1)[S.idx],
+                    cand_n[j].view(-1, 3)[S.idx])
+        k_got = kept_choice(got, held_d, held_n, cand_d, cand_n)
+        k_ref = kept_choice(ref, held_d, held_n, cand_d, cand_n)
+        if bool((k_got == -2).any()) or bool((k_ref == -2).any()):
+            fail(f"{label}: a pixel holds neither its plane nor a "
+                 f"candidate")
+        same_cost = c_got.nan_to_num() == held_c.nan_to_num()
+        if not bool(((k_got == -1) & same_cost)[keep].all()):
+            fail(f"{label}: the kernel changed a pixel outside the launch, "
+                 f"outside the mask or with a NaN held cost")
+        gap = (choice_cost.gather(0, k_got[None] + 1)
+               - choice_cost.gather(0, k_ref[None] + 1))[0].abs()
+        wrong = (k_got != k_ref) & ~(gap <= 2e-3)
+        if bool(wrong.any()):
+            fail(f"{label}: the kernel kept another candidate than the twin "
+                 f"at {int(wrong.sum())} pixels whose costs do not tie")
+        swaps = float((k_got != k_ref)[inside].float().mean())
+        changed = float((k_got != -1)[inside].float().mean())
+    phase(f"[pm-kernel] {label} launch, {cand_d.shape[0]} candidates on "
+          f"{pixels} pixels, {problem.src_images.shape[0]} sources: costs "
+          f"{within:.6f} within 1e-4 of the twin, max {max_err:.3e}; plane "
+          f"changed at {changed:.4f} of them, another candidate than the "
+          f"twin's (a tie) at {swaps:.6f}; twin {twin_ms:.4f} ms")
+    return {"pass": "geometric" if geom else "photometric", "kind": kind,
+            "width": w, "height": h, "pixels": pixels,
+            "candidates": cand_d.shape[0],
+            "sources": problem.src_images.shape[0], "plain_ms": twin_ms,
+            "within_1e4": within, "max_abs_err": max_err,
+            "changed": changed, "tie_swaps": swaps}
+
+
+def kept_choice(state, held_d, held_n, cand_d, cand_n):
+    """Per pixel, which plane `state` (cost, depth, normal) holds: -1 the
+    held plane, j candidate j (the first equal), -2 none of them."""
+    _, d, n = state
+    k = torch.full(d.shape, -2, dtype=torch.long, device=d.device)
+    for j in reversed(range(cand_d.shape[0])):
+        k[(d == cand_d[j]) & (n == cand_n[j]).all(-1)] = j
+    k[(d == held_d) & (n == held_n).all(-1)] = -1
+    return k
 
 
 def main_path(work, report):
@@ -857,26 +978,42 @@ def hierarchical_path(report):
 
 
 def pm_calls_per_solve(opts: pm.PatchMatchOptions) -> int:
-    """`_set_cost` calls in one checkerboard solve at `opts`: the initial
-    costs (two colours), 4 + num_perturbations candidates a propagation
-    half-iteration on its colour, two candidates a refinement
-    half-iteration on each colour (86 at the defaults)."""
-    return (2 + 2 * opts.num_iterations * (4 + opts.num_perturbations)
-            + 2 * opts.num_refinement_iterations * 2 * 2)
+    """Cost-kernel launches in one checkerboard solve at `opts`: the
+    initial costs, one a propagation half-iteration (its 4 +
+    num_perturbations candidates on its colour) and one a refinement
+    half-iteration (2 candidates on both colours): 17 at the defaults."""
+    return 1 + 2 * opts.num_iterations + 2 * opts.num_refinement_iterations
 
 
-def check_pm_launches(tag, launches, maps, pm_report):
-    """The cost kernel launched once per `_set_cost` call of both passes'
-    `maps` solves each (the stereo defaults' options); recorded as the
-    path's count in the kernel's report."""
-    want = 2 * maps * pm_calls_per_solve(
-        dense.PatchMatchStereoOptions().patch_match)
+def check_pm_launches(tag, launches, evaluations, maps, dense_dir,
+                      pm_report):
+    """The cost kernel launched once at init and once per half-iteration
+    of both passes' `maps` solves each (the stereo defaults' options), and
+    evaluated `bench_patch_match.cost_evaluations` (43) x H x W planes a
+    solve, H x W read from the depth maps in `dense_dir` (the geometric
+    pass writes them at the size both passes solved);
+    recorded as the path's counts in the kernel's report."""
+    opts = dense.PatchMatchStereoOptions().patch_match
+    want = 2 * maps * pm_calls_per_solve(opts)
+    pixels = [depth_map.DepthMap.read(os.path.join(
+        dense_dir, "stereo", "depth_maps", f)).data.size
+        for f in sorted(os.listdir(os.path.join(dense_dir, "stereo",
+                                                "depth_maps")))
+        if f.endswith(".geometric.bin")]
+    if len(pixels) != maps:
+        fail(f"{tag}: {len(pixels)} depth maps for {maps} maps")
+    want_evals = 2 * bench_patch_match.cost_evaluations(opts) * sum(pixels)
     pm_report["launches_by_path"][tag] = launches
+    pm_report["evaluations_by_path"][tag] = evaluations
     phase(f"[{tag}] PatchMatch cost kernel launches {launches} for 2 x "
-          f"{maps} solves ({want} cost calls)")
+          f"{maps} solves ({want} wanted), plane evaluations {evaluations} "
+          f"({want_evals} wanted)")
     if launches != want:
         fail(f"{tag}: the cost kernel launched {launches} times for {want} "
-             f"cost calls")
+             f"half-iterations and initial costs")
+    if evaluations != want_evals:
+        fail(f"{tag}: the cost kernel evaluated {evaluations} planes for "
+             f"{want_evals}")
 
 
 def dense_path(work, report, pm_report):
@@ -896,15 +1033,17 @@ def dense_path(work, report, pm_report):
         camera_model="SIMPLE_RADIAL", single_camera=True, sparse=True,
         dense=True,
         camera_params=",".join(map(str, [K[0, 0], K[0, 2], K[1, 2], 0.0])))
-    hpm.launches = 0
+    hpm.launches = hpm.evaluations = 0
     rec, db, st, launches = drive("dense", opts)
-    pm_launches = hpm.launches
+    pm_launches, pm_evaluations = hpm.launches, hpm.evaluations
     report["launches_by_path"]["dense"] = launches
     n_maps = st["patch_match_maps"]
-    check_pm_launches("dense", pm_launches, n_maps, pm_report)
-    pm_report["launches"] = pm_launches
-    ids = {im["name"]: iid for iid, im in db.read_images().items()}
     dense_dir = os.path.join(opts.workspace_path, "dense")
+    check_pm_launches("dense", pm_launches, pm_evaluations, n_maps,
+                      dense_dir, pm_report)
+    pm_report["launches"] = pm_launches
+    pm_report["evaluations"] = pm_evaluations
+    ids = {im["name"]: iid for iid, im in db.read_images().items()}
     ucam = next(iter(reconstruction_io.read_model(
         os.path.join(dense_dir, "sparse")).cameras.values()))
     mpix = ucam.width * ucam.height / 1e6
@@ -1150,18 +1289,19 @@ def multi_path(dslr, dense_cell, report, pm_report):
             os.remove(os.path.join(ws, "stereo", sub, f))
     timings = {}
     _zero_counts()
-    hpm.launches = 0
+    hpm.launches = hpm.evaluations = 0
     t0 = time.perf_counter()
     dense.run_patch_match_stereo(ws, dense.PatchMatchStereoOptions(
         num_devices=2, max_image_size=MULTI_PATCH_MATCH_SIZE),
         device="cuda", timings=timings)
-    pm_launches = hpm.launches
+    pm_launches, pm_evaluations = hpm.launches, hpm.evaluations
     _step(f"run_patch_match_stereo(num_devices=2) at "
           f"{MULTI_PATCH_MATCH_SIZE} px, "
           f"{_mesh_line(pmesh.make_mesh(2, 'cuda'))}: {timings['maps']} maps, "
           f"photometric {timings['photometric']:.3f} s, geometric "
           f"{timings['geometric']:.3f} s", t0)
-    check_pm_launches("multi", pm_launches, timings["maps"], pm_report)
+    check_pm_launches("multi", pm_launches, pm_evaluations, timings["maps"],
+                      ws, pm_report)
     check_depth_maps(dense_cell["rec"], dense_cell["gt"], ws,
                      dense_cell["room_size"], "multi")
     phase(f"[multi] phase {time.perf_counter() - t_phase:.3f} s")

@@ -13,7 +13,10 @@ torch.profiler (the top kernels, the kernel launches per map and the
 device's busy share: kernel time over wall time). Then one 2048x1536
 problem (the reference's max_image_size regime): seconds and peak memory.
 Both are held to the ground truth (estimated share, median relative depth
-error).
+error). Last, one launch of each kind the solver makes (`launch_times`:
+the initial costs, a propagation and a refinement half-iteration) at the
+dense cell's shape, 640x480 with 8 sources, in both passes: ms a launch,
+ns a plane evaluation and the launch's bound.
 
 The bound is the least time the card could take for the photometric
 cost's arithmetic: the port evaluates (1 + num_iterations * (4 +
@@ -52,7 +55,7 @@ FLOPS_PER_TAP = 3 + 2 + 4 + 17 + 6 + 7
 # the pixel distance (6), the clamp and mask (2), and the regulariser's
 # multiply-add (2)
 GEOM_FLOPS_PER_SOURCE = 18 + 15 + 3 + 17 + 15 + 6 + 15 + 18 + 6 + 2 + 2
-# one `_set_cost` call's own count, which its kernel's bound takes (the
+# one plane evaluation's own count, which the kernel's bound takes (the
 # solve's bound above counts the twin's operations): per pixel, source and
 # tap the affine warp (3 adds), two quotients, the bilinear sample (17),
 # the source sample's three weighted products (w v, w v v, w r v) and the
@@ -208,13 +211,72 @@ def bound_ms(width: int, height: int, n_src: int,
 
 def cost_call_bound_ms(pixels: int, n_src: int, opts: pm.PatchMatchOptions,
                        geometric: bool) -> float:
-    """The least time one `_set_cost` call over `pixels` pixels could take
-    (its float32 operations over the float32 peak)."""
+    """The least time the kernel could take to evaluate one plane at each
+    of `pixels` pixels (its float32 operations over the float32 peak); a
+    launch of C candidates takes C times it."""
     taps = (2 * opts.window_radius // opts.window_step + 1) ** 2
     per = taps * (n_src * CALL_FLOPS_PER_SOURCE_TAP + CALL_FLOPS_PER_TAP)
     if geometric:
         per += n_src * GEOM_FLOPS_PER_SOURCE
     return pixels * per / FP32_FLOPS_PER_S * 1e3
+
+
+CELL = (640, 480, 8)  # the dense cell's maps: width, height, sources
+
+
+def launch_times(device="cuda", reps: int = 20) -> list:
+    """One launch of each kind the solver makes (`patch_match._keep_better`:
+    the initial planes on every pixel, a propagation half-iteration's 4 +
+    num_perturbations candidates on one colour, a refinement
+    half-iteration's 2 candidates on both colours) at the cell's shape, on
+    `plane_problem` (texture in every window), photometric and geometric:
+    ms a launch (CUDA events over `reps` launches), ns a plane evaluation,
+    and the bound: `cost_call_bound_ms` of the launch's pixels times its
+    candidates."""
+    from colmap_tpu_torch.bench_matcher import cuda_ms
+    from colmap_tpu_torch.mvs import hopper_patch_match as hpm
+
+    width, height, n_src = CELL
+    out = []
+    for geom in (False, True):
+        problem, gt = plane_problem(height, width, n_src, device, seed=1,
+                                    geom=geom)
+        opts = pm.PatchMatchOptions(geom_consistency=geom)
+        pre = pm._precompute(problem, opts)
+        sets = pm._checker_sets(pre)
+        c_prop = 4 + opts.num_perturbations
+        planes = [plane_candidates(problem, gt, seed=2 + j)
+                  for j in range(c_prop + 1)]
+        cand_d = torch.stack([p[0] for p in planes[1:]])
+        cand_n = torch.stack([p[1] for p in planes[1:]])
+        depth, normal = planes[0]
+        cost = torch.empty_like(depth)
+        for kind, kind_sets, c in (("init", sets, 1),
+                                   ("propagation", sets[1:], c_prop),
+                                   ("refinement", sets, 2)):
+            if kind == "init":
+                args = (depth[None], normal[None], cost)
+            else:
+                args = (cand_d[:c], cand_n[:c], cost, depth.clone(),
+                        normal.clone())
+
+            def launch(kind_sets=kind_sets, args=args):
+                pm._keep_better(problem, pre, opts, kind_sets, *args)
+
+            before = hpm.launches
+            launch()
+            if hpm.launches != before + 1:
+                raise RuntimeError(f"a {kind} launch took "
+                                   f"{hpm.launches - before} launches")
+            ms = min(cuda_ms(launch, reps), cuda_ms(launch, reps))
+            pixels = sum(int(S.idx.numel()) for S in kind_sets)
+            bound = c * cost_call_bound_ms(pixels, n_src, opts, geom)
+            out.append(dict(
+                kind=kind, geometric=geom, width=width, height=height,
+                sources=n_src, pixels=pixels, candidates=c, ms=ms,
+                ns_per_evaluation=ms * 1e6 / (pixels * c), bound_ms=bound,
+                share=bound / ms))
+    return out
 
 
 def solve(problem, opts, seed=0):
@@ -270,6 +332,8 @@ def run(device="cuda"):
                       peak_bytes=torch.cuda.max_memory_allocated(),
                       bound_ms=bound_ms(bw, bh, n_src, opts),
                       **accuracy(depth, gt))
+    del problem
+    out["launches"] = launch_times(device)
     return out
 
 

@@ -22,13 +22,26 @@ is the JAX module's, not the reference's sequential sweep:
   term (forward-backward reprojection against the source depth maps) and
   the NCC filter.
 
-On CUDA tensors the cost of a pixel set (`_set_cost`) is one launch of
-the hand-written kernel csrc/patch_match_cost.cu (`hopper_patch_match`),
-which computes the warp, the samples, the NCC over all sources, the
-geometric term and the top-k without any [sources, pixels, taps]
-temporary; the torch code here, `_set_cost_reference`, is its plain twin
-and runs on CPU tensors. The per-solve constants of the cost (the warp's
-A and b, K_src^-1, the taps' spatial weights) come from `_precompute`.
+On CUDA tensors a whole half-iteration (`_keep_better`) is one launch of
+the hand-written kernel csrc/patch_match_cost.cu (`hopper_patch_match`):
+it evaluates every candidate plane at every pixel it updates (the warp,
+the samples, the NCC over all sources, the geometric term and the top-k,
+without any [sources, pixels, taps] temporary) and keeps the better in
+candidate order. A solve makes 1 + 2 num_iterations + 2
+num_refinement_iterations launches (17 at the defaults): the initial
+costs, each propagation half-iteration (its 4 + num_perturbations
+candidates on one colour) and each refinement half-iteration (2
+candidates on both colours, which read only candidates built before
+either colour changes). Each launch carries pixels x candidates
+independent evaluations: at 640x480 a propagation launch fills the card
+9.1 times and a refinement launch 6.1 times, where one colour and one
+candidate filled it 1.52 times. The torch code here, `_keep_better_reference`
+(one `_set_cost_reference` per colour and candidate, then torch's select),
+is its plain twin and runs on CPU tensors. Keep-if-better is strict and in
+candidate order: candidate j replaces the held plane where its cost is
+below the held cost, so ties keep the held plane and a NaN cost neither
+wins nor is beaten. The per-solve constants of the cost (the warp's A and
+b, K_src^-1, the taps' spatial weights) come from `_precompute`.
 
 The JAX solver evaluates every candidate over the whole image and masks
 the inactive colour. Costs are independent per pixel, so here a
@@ -410,24 +423,6 @@ def _window(opts: PatchMatchOptions) -> np.ndarray:
                      opts.window_step).astype(np.float32)
 
 
-def _set_cost(problem: PatchMatchProblem, pre: _Precomp,
-              opts: PatchMatchOptions, S: _PixelSet, depth: torch.Tensor,
-              normal: torch.Tensor) -> torch.Tensor:
-    """The aggregated cost [N] of the planes (depth [N], normal [N, 3]) at
-    the pixels of S: per source the photometric cost (+ the weighted
-    geometric term), then the mean of the top_k lowest. One span,
-    `patch_match.cost`, per call. CUDA tensors go through the fused kernel
-    (`hopper_patch_match`, one launch), CPU tensors through the plain twin
-    `_set_cost_reference`."""
-    with span("patch_match.cost"):
-        if depth.is_cuda:
-            return hopper_patch_match.set_cost(problem, pre, opts, S.idx,
-                                               depth, normal)
-        if depth.device.type != "cpu":
-            raise ValueError(f"no PatchMatch cost for device {depth.device}")
-        return _set_cost_reference(problem, pre, opts, S, depth, normal)
-
-
 def _set_cost_reference(problem: PatchMatchProblem, pre: _Precomp,
                         opts: PatchMatchOptions, S: _PixelSet,
                         depth: torch.Tensor,
@@ -451,19 +446,77 @@ def _set_cost_reference(problem: PatchMatchProblem, pre: _Precomp,
     return torch.topk(costs, k, dim=0, largest=False).values.mean(0)
 
 
+def _keep_better(problem: PatchMatchProblem, pre: _Precomp,
+                 opts: PatchMatchOptions, sets: Sequence[_PixelSet],
+                 cand_d: torch.Tensor, cand_n: torch.Tensor,
+                 cost: torch.Tensor, depth: Optional[torch.Tensor] = None,
+                 normal: Optional[torch.Tensor] = None,
+                 active: Optional[torch.Tensor] = None) -> None:
+    """Evaluate the C candidate planes (cand_d [C, H, W], cand_n [C, H, W,
+    3]) at the pixels of `sets` (one pixel set, or the disjoint sets that
+    cover the image) and keep each, in order, where its cost is strictly
+    below the held cost and `active` [H, W] (None: everywhere) holds: depth
+    [H, W], normal [H, W, 3] and cost [H, W] are updated in place. Without
+    depth and normal (the initial planes) C is 1 and its cost is written.
+    One span, `patch_match.cost`, per call. CUDA tensors: one launch of the
+    kernel over all the sets' pixels and candidates; CPU tensors: the plain
+    twin `_keep_better_reference`."""
+    # the kernel takes one set's pixels or every pixel; the twin takes
+    # the sets as given, so both refuse what would part them
+    if len(sets) > 1 and sum(S.idx.shape[0] for S in sets) != cost.numel():
+        raise ValueError("several pixel sets must cover the image")
+    with span("patch_match.cost"):
+        if cost.is_cuda:
+            idx = sets[0].idx if len(sets) == 1 else None
+            hopper_patch_match.select_planes(problem, pre, opts, idx, cand_d,
+                                             cand_n, cost, depth, normal,
+                                             active)
+        elif cost.device.type == "cpu":
+            _keep_better_reference(problem, pre, opts, sets, cand_d, cand_n,
+                                   cost, depth, normal, active)
+        else:
+            raise ValueError(f"no PatchMatch cost for device {cost.device}")
+
+
+def _keep_better_reference(problem: PatchMatchProblem, pre: _Precomp,
+                           opts: PatchMatchOptions,
+                           sets: Sequence[_PixelSet], cand_d: torch.Tensor,
+                           cand_n: torch.Tensor, cost: torch.Tensor,
+                           depth: Optional[torch.Tensor] = None,
+                           normal: Optional[torch.Tensor] = None,
+                           active: Optional[torch.Tensor] = None) -> None:
+    """The plain PyTorch twin of the kernel's launch, on any device: per
+    set and candidate, `_set_cost_reference` and a torch select."""
+    cf = cost.reshape(-1)
+    for S in sets:
+        for d_c, n_c in zip(cand_d, cand_n):
+            d_c = d_c.reshape(-1)[S.idx]
+            n_c = n_c.reshape(-1, 3)[S.idx]
+            c_c = _set_cost_reference(problem, pre, opts, S, d_c, n_c)
+            if depth is None:
+                cf[S.idx] = c_c
+                continue
+            df, nf = depth.reshape(-1), normal.reshape(-1, 3)
+            better = c_c < cf[S.idx]
+            if active is not None:
+                better &= active.reshape(-1)[S.idx]
+            df[S.idx] = torch.where(better, d_c, df[S.idx])
+            nf[S.idx] = torch.where(better[:, None], n_c, nf[S.idx])
+            cf[S.idx] = torch.where(better, c_c, cf[S.idx])
+
+
 def _cost_fn(problem: PatchMatchProblem, pre: _Precomp,
              opts: PatchMatchOptions):
-    """Returns cost(depth [H, W], normal [H, W, 3]) -> [H, W], evaluated
-    colour by colour."""
+    """Returns cost(depth [H, W], normal [H, W, 3]) -> [H, W]: one
+    `_keep_better` call over both colours with the planes as its one
+    candidate and no held plane."""
     sets = _checker_sets(pre)
 
     def cost(depth, normal):
-        out = torch.empty(depth.numel(), dtype=_F32, device=depth.device)
-        for S in sets:
-            out[S.idx] = _set_cost(problem, pre, opts, S,
-                                   depth.reshape(-1)[S.idx],
-                                   normal.reshape(-1, 3)[S.idx])
-        return out.reshape(depth.shape)
+        out = torch.empty(depth.shape, dtype=_F32, device=depth.device)
+        _keep_better(problem, pre, opts, sets, depth.contiguous()[None],
+                     normal.contiguous()[None], out)
+        return out
 
     return cost
 
@@ -516,8 +569,9 @@ def patch_match(draws, problem: PatchMatchProblem,
     around the whole call (it names what falls between the phases), and
     inside it `patch_match.precompute`, `patch_match.init`, one
     `patch_match.propagation` and one `patch_match.refinement` per
-    half-iteration, `patch_match.filter`, and inside those one
-    `patch_match.cost` per cost evaluation.
+    half-iteration, `patch_match.filter`, and inside init and each
+    half-iteration one `patch_match.cost` (`_keep_better`: on CUDA one
+    kernel launch), 37 spans a solve at the defaults.
     """
     with span("patch_match"):
         return _patch_match(draws, problem, options, active_half)
@@ -536,25 +590,6 @@ def _patch_match(draws, problem: PatchMatchProblem,
         sets = _checker_sets(pre) if active_half else [
             _pixel_set(pre, torch.arange(h * w, device=dev))]
 
-    def cost_at(S, depth, normal):
-        return _set_cost(problem, pre, opts, S, depth.reshape(-1)[S.idx],
-                         normal.reshape(-1, 3)[S.idx])
-
-    def select(S, active, cand_d, cand_n, depth, normal, cost):
-        """Keep each candidate (in order) where it lowers the cost at an
-        active pixel of S."""
-        df, nf, cf = depth.reshape(-1), normal.reshape(-1, 3), cost.reshape(-1)
-        for d_c, n_c in zip(cand_d, cand_n):
-            d_c = d_c.reshape(-1)[S.idx]
-            n_c = n_c.reshape(-1, 3)[S.idx]
-            c_c = _set_cost(problem, pre, opts, S, d_c, n_c)
-            better = c_c < cf[S.idx]
-            if active is not None:
-                better &= active.reshape(-1)[S.idx]
-            df[S.idx] = torch.where(better, d_c, df[S.idx])
-            nf[S.idx] = torch.where(better[:, None], n_c, nf[S.idx])
-            cf[S.idx] = torch.where(better, c_c, cf[S.idx])
-
     with span("patch_match.init"):
         u0, g0 = (t.to(dev) for t in draws.initial())
         log_lo = torch.log(dmin)
@@ -562,8 +597,8 @@ def _patch_match(draws, problem: PatchMatchProblem,
         depth = torch.exp(u0 * (log_hi - log_lo) + log_lo)
         normal = _random_normals(g0, rays)
         cost = torch.empty((h, w), dtype=_F32, device=dev)
-        for S in sets:
-            cost.reshape(-1)[S.idx] = cost_at(S, depth, normal)
+        _keep_better(problem, pre, opts, sets, depth[None], normal[None],
+                     cost)
         ys, xs = _pixel_grid(h, w, dev)
         checker = ((ys + xs) % 2).to(torch.bool)
 
@@ -583,11 +618,11 @@ def _patch_match(draws, problem: PatchMatchProblem,
             cand_n = torch.stack([c[1] for c in cand])
             if active_half:
                 # colour (y + x) % 2 == 1 is active on even half-iterations
-                select(sets[(i + 1) % 2], None, cand_d, cand_n, depth,
-                       normal, cost)
+                _keep_better(problem, pre, opts, [sets[(i + 1) % 2]], cand_d,
+                             cand_n, cost, depth, normal)
             else:
-                select(sets[0], checker ^ bool(i % 2), cand_d, cand_n, depth,
-                       normal, cost)
+                _keep_better(problem, pre, opts, sets, cand_d, cand_n, cost,
+                             depth, normal, checker ^ bool(i % 2))
 
     for i in range(2 * opts.num_refinement_iterations):
         with span("patch_match.refinement", iteration=i):
@@ -597,8 +632,10 @@ def _patch_match(draws, problem: PatchMatchProblem,
             cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin,
                                  dmax)
             cand_n = torch.stack([c[1] for c in cand])
-            for S in sets:
-                select(S, None, cand_d, cand_n, depth, normal, cost)
+            # both colours at once: the candidates are built before either
+            # colour changes, as when the colours ran one after the other
+            _keep_better(problem, pre, opts, sets, cand_d, cand_n, cost,
+                         depth, normal)
 
     with span("patch_match.filter"):
         if opts.filter:

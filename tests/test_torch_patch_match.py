@@ -14,12 +14,17 @@ within 1e-3 relative and the same filter mask on >= 99% of the pixels
 orders); the port's own generator held to tests/test_mvs.py's gates on the
 4-image 160x120 room; and the active-colour evaluation equal to the masked
 whole-image one. The per-solve constants that `_precompute` hoists out of
-the cost are the ones `_set_cost` computed per call, and CPU tensors never
-reach the kernel.
+the cost are the ones the cost computed per call, and CPU tensors never
+reach the kernel. The solver, which selects a whole half-iteration's
+candidates in one call (`_keep_better`), gives the maps of the loop it
+replaced (one one-candidate call per colour and candidate, then torch's
+select; kept here as `_patch_match_loop`), bit for bit, on the CPU and on
+the card.
 
 On the card (`-m cuda`; the tests skip without a CUDA device): the cost
-kernel (`hopper_patch_match`, one launch per `_set_cost` call) against the
-twin `_set_cost_reference` on the same CUDA inputs, at the benchmark cell's
+kernel (`hopper_patch_match`, one launch of one candidate with no held
+plane, `_costs_at`) against the twin `_set_cost_reference` on the same
+CUDA inputs, at the benchmark cell's
 640x480 with 8 sources (both passes, both checkerboard colours and the
 whole image), at 1, 3 and 13 sources, window radius 2 and 5 at steps 1
 and 2, 96x72 and 2048x1536, with the tolerance above: the kernel's warp,
@@ -28,8 +33,15 @@ and only the seven sums' order and the photometric sample's coordinate
 path (grid_sample's [-1, 1] round trip in the twin) differ. On the cell's
 own rendered scene both are held against the twin's float64 evaluation
 of the same inputs (on the CPU too, at 96x72), and the kernel launches
-once per call and refuses sizes beyond its limits. The machine with the
-card has no JAX; there the JAX tests skip:
+once per call and refuses sizes beyond its limits. One launch of a
+half-iteration's C candidates (`hopper_patch_match.select_planes`: the
+initial planes, a propagation half-iteration on one colour, a refinement
+half-iteration on both colours, the masked whole-image form) gives the
+depths, normals and costs of C one-candidate launches and torch's select,
+bit for bit, on the cell's own scene in both passes and at a size that is
+no multiple of the kernel's block; a solve makes 17 launches and
+43 x H x W plane evaluations. The machine with the card has no JAX; there
+the JAX tests skip:
 
     python -m pytest tests/test_torch_patch_match.py -m cuda -q --noconftest -o addopts=""
 """
@@ -278,6 +290,123 @@ def test_active_half_equals_whole_image(geom):
     assert (outs[0][0] > 0).float().mean() > 0.2
 
 
+def _costs_at(problem, pre, opts, S, depth, normal):
+    """The costs at the pixels of S of the planes depth [H, W], normal
+    [H, W, 3]: one `_keep_better` call with them as its one candidate and
+    no held plane (on CUDA one launch of the kernel, on the CPU the
+    twin)."""
+    cost = torch.empty(depth.shape, dtype=torch.float32, device=depth.device)
+    tpm._keep_better(problem, pre, opts, [S], depth.contiguous()[None],
+                     normal.contiguous()[None], cost)
+    return cost.view(-1)[S.idx]
+
+
+def _select_by_calls(problem, pre, opts, S, active, cand_d, cand_n, depth,
+                     normal, cost):
+    """The solver's selection before it went into one launch: per
+    candidate its cost at the pixels of S (`_costs_at`: on CUDA one launch
+    with one candidate) and torch's keep-if-better there."""
+    df, nf, cf = depth.reshape(-1), normal.reshape(-1, 3), cost.reshape(-1)
+    for d_c, n_c in zip(cand_d, cand_n):
+        c_c = _costs_at(problem, pre, opts, S, d_c, n_c)
+        d_c = d_c.reshape(-1)[S.idx]
+        n_c = n_c.reshape(-1, 3)[S.idx]
+        better = c_c < cf[S.idx]
+        if active is not None:
+            better &= active.reshape(-1)[S.idx]
+        df[S.idx] = torch.where(better, d_c, df[S.idx])
+        nf[S.idx] = torch.where(better[:, None], n_c, nf[S.idx])
+        cf[S.idx] = torch.where(better, c_c, cf[S.idx])
+
+
+def _patch_match_loop(draws, problem, opts, active_half=True):
+    """The solver as it was before a half-iteration became one call: the
+    initial costs, each candidate and each colour one `_costs_at` call,
+    selected by `_select_by_calls`."""
+    h, w = problem.ref_image.shape
+    dev = problem.ref_image.device
+    pre = tpm._precompute(problem, opts)
+    rays = pre.rays
+    dmin, dmax = problem.depth_min, problem.depth_max
+    sets = tpm._checker_sets(pre) if active_half else [
+        tpm._pixel_set(pre, torch.arange(h * w, device=dev))]
+    u0, g0 = (t.to(dev) for t in draws.initial())
+    log_lo, log_hi = torch.log(dmin), torch.log(dmax)
+    depth = torch.exp(u0 * (log_hi - log_lo) + log_lo)
+    normal = tpm._random_normals(g0, rays)
+    cost = torch.empty((h, w), dtype=torch.float32, device=dev)
+    for S in sets:
+        cost.reshape(-1)[S.idx] = _costs_at(problem, pre, opts, S, depth,
+                                            normal)
+    ys, xs = tpm._pixel_grid(h, w, dev)
+    checker = ((ys + xs) % 2).to(torch.bool)
+
+    def draw():
+        return tuple(t.to(dev) for t in draws.perturbation())
+
+    for i in range(2 * opts.num_iterations):
+        it = float(i // 2)
+        cand = [tpm._propagate(depth, normal, rays, shift)
+                for shift in ((1, 0), (-1, 0), (0, 1), (0, -1))]
+        cand += [tpm._perturb(draw(), depth, normal, rays,
+                              0.5 * 2.0 ** -it / (j + 1))
+                 for j in range(opts.num_perturbations)]
+        cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin, dmax)
+        cand_n = torch.stack([c[1] for c in cand])
+        if active_half:
+            _select_by_calls(problem, pre, opts, sets[(i + 1) % 2], None,
+                             cand_d, cand_n, depth, normal, cost)
+        else:
+            _select_by_calls(problem, pre, opts, sets[0],
+                             checker ^ bool(i % 2), cand_d, cand_n, depth,
+                             normal, cost)
+    for i in range(2 * opts.num_refinement_iterations):
+        scale = 0.02 * 2.0 ** -float(i // 2)
+        cand = [tpm._perturb(draw(), depth, normal, rays, scale / (j + 1))
+                for j in range(2)]
+        cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin, dmax)
+        cand_n = torch.stack([c[1] for c in cand])
+        for S in sets:
+            _select_by_calls(problem, pre, opts, S, None, cand_d, cand_n,
+                             depth, normal, cost)
+    if opts.filter:
+        thresh = 1.0 - opts.filter_min_ncc
+        if opts.geom_consistency:
+            thresh = thresh + (opts.geom_consistency_regularizer
+                               * opts.geom_consistency_max_cost * 0.5)
+        keep = cost < thresh
+        depth = torch.where(keep, depth, torch.zeros_like(depth))
+        normal = torch.where(keep[..., None], normal, torch.zeros_like(normal))
+    return depth, normal, cost
+
+
+def _solver_against_loop(problem, opts, active_half, seed):
+    """The solver and `_patch_match_loop` on the same draws: equal maps."""
+    shape = tuple(problem.ref_image.shape)
+    outs = []
+    for solve in (tpm.patch_match, _patch_match_loop):
+        g = torch.Generator(device=problem.ref_image.device).manual_seed(seed)
+        outs.append(solve(tpm.GeneratorDraws(g, shape), problem, opts,
+                          active_half=active_half))
+    for got, ref, name in zip(*outs, ("depth", "normal", "cost")):
+        assert torch.equal(got, ref), (name, int((got != ref).sum()))
+    return outs[0]
+
+
+@pytest.mark.parametrize("active_half", [True, False])
+@pytest.mark.parametrize("geom", [False, True])
+def test_solver_equals_the_per_candidate_loop(geom, active_half):
+    """On the CPU the solver's one call a half-iteration (the twin
+    `_keep_better_reference`) gives the maps of the per-candidate loop at a
+    fixed seed, bit for bit."""
+    room = _room(48, 36, 42.0)
+    arrs, _ = _problem_arrays(room, geom=geom)
+    opts = tpm.PatchMatchOptions(num_iterations=2, geom_consistency=geom)
+    depth, _, _ = _solver_against_loop(_torch_problem(arrs), opts,
+                                       active_half, seed=7)
+    assert float((depth > 0).float().mean()) > 0.2
+
+
 def _torch_problem(arrs, device="cpu"):
     return tpm.PatchMatchProblem(**{
         k: torch.as_tensor(np.asarray(v), device=device)
@@ -319,7 +448,7 @@ def test_twin_against_float64(small_room, geom):
 
 def test_precompute_hoists_the_cost_constants(small_room):
     """A = K_src R K_ref^-1, b = K_src t and K_src^-1, once a solve, are
-    what `_set_cost` computed on every call, bit for bit; and the taps'
+    what the cost computed on every call, bit for bit; and the taps'
     spatial weights are the factor of `bil_w`."""
     arrs, _ = _problem_arrays(small_room, geom=True)
     tp = _torch_problem(arrs)
@@ -368,13 +497,19 @@ def test_kernel_wrapper_refuses_what_it_cannot_launch(small_room):
     opts = tpm.PatchMatchOptions()
     pre = tpm._precompute(tp, opts)
     S = tpm._checker_sets(pre)[0]
-    d, n = (torch.as_tensor(x).reshape(-1, *x.shape[2:])[S.idx]
-            for x in _planes(arrs, gt, seed=5))
+    depth, normal = (torch.as_tensor(x) for x in _planes(arrs, gt, seed=6))
+    cost = torch.zeros(depth.shape)
+    # several sets are taken as the whole image, so they must cover it
+    with pytest.raises(ValueError, match="must cover the image"):
+        tpm._keep_better(tp, pre, opts, [S, tpm._pixel_set(pre, S.idx[:3])],
+                         depth[None], normal[None], cost)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        hpm.set_cost(tp, pre, opts, S.idx, d, n)
+        hpm.select_planes(tp, pre, opts, S.idx, depth[None], normal[None],
+                          cost, depth, normal)
     with pytest.raises(ValueError, match="no PatchMatch cost"):
-        tpm._set_cost(tp, pre, opts, S, d.to("meta"), n.to("meta"))
-    assert hpm.launches == 0
+        tpm._keep_better(tp, pre, opts, [S], depth[None].to("meta"),
+                         normal[None].to("meta"), cost.to("meta"))
+    assert hpm.launches == hpm.evaluations == 0
 
 
 # -- on the card --------------------------------------------------------------
@@ -388,13 +523,13 @@ def cuda():
 
 
 def _kernel_against_twin(problem, opts, S, depth, normal, pre=None):
-    """One `_set_cost` call (one launch) against the twin on the same
+    """One `_costs_at` call (one launch) against the twin on the same
     CUDA inputs; returns the twin's costs."""
     pre = pre if pre is not None else tpm._precompute(problem, opts)
     d = depth.reshape(-1)[S.idx]
     n = normal.reshape(-1, 3)[S.idx]
     before = hpm.launches
-    got = tpm._set_cost(problem, pre, opts, S, d, n)
+    got = _costs_at(problem, pre, opts, S, depth, normal)
     assert hpm.launches == before + 1
     ref = tpm._set_cost_reference(problem, pre, opts, S, d, n)
     torch.cuda.synchronize()
@@ -512,7 +647,7 @@ def test_kernel_against_float64_on_the_cells_scene(cuda, geom):
     for S in tpm._checker_sets(pre):
         d, n = depth.reshape(-1)[S.idx], normal.reshape(-1, 3)[S.idx]
         before = hpm.launches
-        got = tpm._set_cost(problem, pre, opts, S, d, n)
+        got = _costs_at(problem, pre, opts, S, depth, normal)
         assert hpm.launches == before + 1
         twin = tpm._set_cost_reference(problem, pre, opts, S, d, n)
         exact = _float64_costs(problem, pre, opts, S, d, n)
@@ -556,7 +691,7 @@ def test_kernel_against_float64_on_flat_windows(cuda, smooth_room, geom):
     errs = {"kernel": [], "twin": []}
     for S in tpm._checker_sets(pre):
         d, n = depth.reshape(-1)[S.idx], normal.reshape(-1, 3)[S.idx]
-        got = tpm._set_cost(problem, pre, opts, S, d, n)
+        got = _costs_at(problem, pre, opts, S, depth, normal)
         twin = tpm._set_cost_reference(problem, pre, opts, S, d, n)
         exact = _float64_costs(problem, pre, opts, S, d, n)
         errs["kernel"].append((got.double() - exact).abs())
@@ -633,18 +768,20 @@ def test_kernel_refuses_sizes_beyond_its_limits(cuda):
     depth, normal = bpm.plane_candidates(problem, gt, seed=2)
     before = hpm.launches
     with pytest.raises(ValueError, match="refused top_k 33, 33 sources"):
-        tpm._set_cost(problem, pre, opts, S, depth.reshape(-1)[S.idx],
-                      normal.reshape(-1, 3)[S.idx])
+        _costs_at(problem, pre, opts, S, depth, normal)
     assert hpm.launches == before
 
 
 @pytest.mark.cuda
 def test_solver_launches_once_per_cost_call(cuda):
     """A whole solve on the card: every `patch_match.cost` span is one
-    launch of the kernel (86 at the defaults), and the maps are sound."""
+    launch of the kernel (17 at the defaults: the initial costs and each of
+    the 10 propagation and 6 refinement half-iterations), which evaluate
+    43 x H x W planes (1 + 5 x 6 / 2 x 2 + 3 x 2 x 2 whole-image
+    equivalents), and the maps are sound."""
     problem, gt = bpm.plane_problem(120, 160, 4, cuda, seed=9, geom=False)
     opts = tpm.PatchMatchOptions()
-    before = hpm.launches
+    before, evals = hpm.launches, hpm.evaluations
     g = torch.Generator(device=cuda).manual_seed(0)
     with timer.span("test.solve") as job:
         depth, normal, _ = tpm.patch_match(tpm.GeneratorDraws(g, gt.shape),
@@ -652,8 +789,147 @@ def test_solver_launches_once_per_cost_call(cuda):
     torch.cuda.synchronize()
     costs = [s for s in timer.job_spans(job.id)
              if s.name == "patch_match.cost"]
-    assert hpm.launches - before == len(costs) == 86
+    assert hpm.launches - before == len(costs) == 17
+    assert hpm.evaluations - evals == 43 * 120 * 160 == (
+        bpm.cost_evaluations(opts) * 120 * 160)
     ok = depth > 0
     assert float(ok.float().mean()) > 0.5
     rel = ((depth - gt).abs() / gt)[ok]
     assert float(rel.median()) < 0.02, float(rel.median())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active_half", [True, False])
+@pytest.mark.parametrize("geom", [False, True])
+def test_solver_equals_the_per_candidate_loop_on_the_card(cuda, geom,
+                                                          active_half):
+    """A whole solve of one launch a half-iteration gives the maps of the
+    loop of one-candidate launches and torch's select, bit for bit."""
+    problem, gt = bpm.plane_problem(120, 160, 4, cuda, seed=9, geom=geom)
+    opts = tpm.PatchMatchOptions(geom_consistency=geom)
+    depth, _, _ = _solver_against_loop(problem, opts, active_half, seed=1)
+    assert float((depth > 0).float().mean()) > 0.5
+
+
+def _launch_cases(problem, gt, pre, seed):
+    """The solver's four kinds of launch on `problem`, each as (name, pixel
+    sets, candidate depths [C, H, W], normals [C, H, W, 3], held planes or
+    None, active mask or None): the initial planes on both colours, a
+    propagation half-iteration (C = 6) on colour 1, a refinement
+    half-iteration (C = 2) on both colours, and the masked whole-image
+    form (C = 6, colour 0 active)."""
+    h, w = gt.shape
+    dev = gt.device
+    sets = tpm._checker_sets(pre)
+    whole = [tpm._pixel_set(pre, torch.arange(h * w, device=dev))]
+    planes = [bpm.plane_candidates(problem, gt, seed=seed + j)
+              for j in range(7)]
+    cand_d = torch.stack([p[0] for p in planes[:6]])
+    cand_n = torch.stack([p[1] for p in planes[:6]])
+    held = planes[6]
+    ys, xs = tpm._pixel_grid(h, w, dev)
+    colour0 = ((ys + xs) % 2) == 0
+    return [
+        ("init", sets, held[0][None], held[1][None], None, None),
+        ("propagation", [sets[1]], cand_d, cand_n, held, None),
+        ("refinement", sets, cand_d[:2].contiguous(),
+         cand_n[:2].contiguous(), held, None),
+        ("masked", whole, cand_d, cand_n, held, colour0),
+    ]
+
+
+def _launch_against_calls(problem, gt, opts, case, seed=3):
+    """One `_keep_better` launch against one one-candidate launch a colour
+    and candidate (`_costs_at`) and torch's select, on the same planes: depth, normal and
+    cost bit for bit (the held costs are the held planes' own, with some
+    NaN). Returns the share of the launch's pixels whose plane changed."""
+    pre = tpm._precompute(problem, opts)
+    name, sets, cand_d, cand_n, held, active = next(
+        c for c in _launch_cases(problem, gt, pre, seed) if c[0] == case)
+    h, w = gt.shape
+    states = []
+    for batched in (True, False):
+        cost = torch.empty((h, w), device=gt.device)
+        depth = normal = None
+        if held is not None:
+            depth, normal = held[0].clone(), held[1].clone()
+            for S in tpm._checker_sets(pre):
+                cost.view(-1)[S.idx] = _costs_at(problem, pre, opts, S,
+                                                 depth, normal)
+            cost.view(-1)[::97] = float("nan")
+        before, evals = hpm.launches, hpm.evaluations
+        if batched:
+            tpm._keep_better(problem, pre, opts, sets, cand_d, cand_n, cost,
+                             depth, normal, active)
+            n = sum(int(S.idx.numel()) for S in sets)
+            assert hpm.launches - before == 1
+            assert hpm.evaluations - evals == n * cand_d.shape[0]
+        elif held is None:
+            for S in sets:
+                cost.view(-1)[S.idx] = _costs_at(problem, pre, opts, S,
+                                                 cand_d[0], cand_n[0])
+        else:
+            for S in sets:
+                _select_by_calls(problem, pre, opts, S, active, cand_d,
+                                 cand_n, depth, normal, cost)
+        torch.cuda.synchronize()
+        states.append((cost, depth, normal))
+    (c1, d1, n1), (c2, d2, n2) = states
+    assert torch.equal(c1.isnan(), c2.isnan())
+    assert torch.equal(c1.nan_to_num(), c2.nan_to_num()), \
+        int((c1.nan_to_num() != c2.nan_to_num()).sum())
+    if held is None:
+        return None
+    assert torch.equal(d1, d2) and torch.equal(n1, n2)
+    assert bool(c1.view(-1)[::97].isnan().all())
+    return float((d1 != held[0]).float().mean())
+
+
+_CASES = ["init", "propagation", "refinement", "masked"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _CASES)
+@pytest.mark.parametrize("geom", [False, True])
+def test_launch_equals_per_candidate_calls_on_the_cells_scene(cuda, geom,
+                                                              case):
+    """The benchmark's renderer at 640x480 with 8 sources, both passes:
+    each kind of launch against the per-candidate calls, bit for bit."""
+    problem, gt, _ = _cell_scene(cuda, seed=1)
+    if not geom:
+        problem = problem._replace(src_depths=None)
+    gt = torch.where(gt > 0, gt, problem.depth_max)
+    opts = tpm.PatchMatchOptions(geom_consistency=geom)
+    changed = _launch_against_calls(problem, gt, opts, case)
+    if changed is not None:
+        assert changed > 0.05, changed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _CASES)
+def test_launch_equals_per_candidate_calls_off_the_block(cuda, case):
+    """37x53 pixels (colours of 981 and 980, no multiple of the kernel's
+    32-pixel block), 3 sources, both terms."""
+    problem, gt = bpm.plane_problem(37, 53, 3, cuda, seed=5, geom=True)
+    opts = tpm.PatchMatchOptions(geom_consistency=True, top_k=2)
+    changed = _launch_against_calls(problem, gt, opts, case)
+    if changed is not None:
+        assert changed > 0.05, changed
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_more_candidates_than_its_limit(cuda):
+    """The C entry holds the candidates' limit (256, its shared memory):
+    257 come back as a ValueError and nothing is counted."""
+    problem, gt = bpm.plane_problem(16, 16, 2, cuda, seed=1)
+    opts = tpm.PatchMatchOptions()
+    pre = tpm._precompute(problem, opts)
+    depth, normal = bpm.plane_candidates(problem, gt, seed=2)
+    cost = torch.zeros_like(depth)
+    before = hpm.launches
+    with pytest.raises(ValueError, match="257 candidates"):
+        hpm.select_planes(problem, pre, opts, None,
+                          depth.expand(257, -1, -1).contiguous(),
+                          normal.expand(257, -1, -1, -1).contiguous(), cost,
+                          depth, normal)
+    assert hpm.launches == before

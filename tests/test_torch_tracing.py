@@ -10,8 +10,8 @@ path, on the CPU.
   its record and its range agree within 50 us or 5%;
 - the solver's spans cover its body (one `patch_match` span around it;
   inside, precompute, init, one propagation and one refinement per
-  half-iteration, filter; one cost span per `_set_cost` call: 106 at the
-  defaults);
+  half-iteration, filter; one cost span per kernel launch, in init and
+  in each half-iteration: 37 at the defaults);
 - `run_patch_match_stereo` on one device and on a 2-shard CPU mesh: every
   `dense.solve` span's parent chain reaches its job root, and `timings`
   equals the spans' seconds and counts; the workspace load holds one
@@ -207,8 +207,9 @@ def test_the_solvers_spans_cover_its_body():
                        pm.PatchMatchOptions())
     spans = timer.job_spans(solve.id)
     names = collections.Counter(s.name for s in spans)
-    # 2 costs at init, 10 half-iterations x 6 candidates, 6 x 2 x 2
-    assert names == {"patch_match.cost": 86, "patch_match.propagation": 10,
+    # one cost span (one launch on the card) at init and in each of the
+    # 10 propagation and 6 refinement half-iterations
+    assert names == {"patch_match.cost": 17, "patch_match.propagation": 10,
                      "patch_match.refinement": 6,
                      "patch_match.precompute": 1, "patch_match.init": 1,
                      "patch_match.filter": 1, "patch_match": 1, "solve": 1}
@@ -275,7 +276,7 @@ def test_dense_job_spans_and_timings(workspace, num_devices):
     names = collections.Counter(s.name for s in spans)
     assert names["dense.upload"] == names["dense.fetch"] == 6
     assert names["dense.load_workspace"] == names["dense.write_maps"] == 1
-    assert names["patch_match.cost"] == 6 * (2 + 2 * 6 + 2 * 2 * 2)
+    assert names["patch_match.cost"] == 6 * (1 + 2 + 2)
     seconds = collections.defaultdict(float)
     for s in spans:
         if s.name == "dense.pass":
