@@ -47,13 +47,13 @@ with Cartesian position priors. Phases:
    (csrc/patch_match_cost.cu) and holds it to its plain twin on the dense
    cell's shape (640x480, 8 sources, a textured plane from
    bench_patch_match.plane_problem) in both passes, one launch of each
-   kind the solver makes (`_keep_better`: the initial costs on both
+   kind the solver makes (`_selector`: the initial costs on both
    colours, a propagation half-iteration's 6 candidates on one colour, a
-   refinement half-iteration's 2 on both colours, the masked whole-image
-   form) against `_keep_better_reference` on copies of the same inputs:
-   costs 1e-4 on 99.9% of the pixels, 1e-3 on all, the same NaN pixels,
-   the held plane kept outside the launch, the mask and at NaN held costs,
-   and the twin's kept candidate wherever its costs do not tie (2e-3);
+   refinement half-iteration's 2 on both colours) against
+   `_keep_better_reference` on copies of the same inputs: costs 1e-4 on
+   99.9% of the pixels, 1e-3 on all, the same NaN pixels, the held plane
+   kept outside the launch and at NaN held costs, and the twin's kept
+   candidate wherever its costs do not tie (2e-3);
    prints the twin's time and the build seconds, then the time of one
    launch of each kind (initial costs, propagation, refinement) with its
    bound; the headline is the photometric propagation launch's;
@@ -413,10 +413,9 @@ def main():
 
 def patch_match_kernel() -> dict:
     """[pm-kernel]: build csrc/patch_match_cost.cu, then hold each kind of
-    launch the solver makes (`pm._keep_better`: the initial planes on both
+    launch the solver makes (`pm._selector`: the initial planes on both
     colours, a propagation half-iteration's 6 candidates on one colour, a
-    refinement half-iteration's 2 candidates on both colours, the masked
-    whole-image form of active_half=False) to its twin
+    refinement half-iteration's 2 candidates on both colours) to its twin
     `pm._keep_better_reference` on copies of the same inputs, on the dense
     cell's shape (640x480, 8 sources, `bench_patch_match.plane_problem`:
     texture in every window, the sources' true depth maps as the geometric
@@ -424,11 +423,11 @@ def patch_match_kernel() -> dict:
     held planes' own, every 97th NaN), in both passes; one launch a call.
     Costs within 1e-4 on 99.9% of the launch's pixels, 1e-3 on all, NaN at
     the same pixels; every pixel holds its held plane or a candidate, bit
-    for bit; pixels outside the launch, outside the mask or with a NaN held
-    cost keep their plane and cost; and the kept candidate is the twin's
-    wherever the twin's costs of the two choices lie more than 2e-3 apart
-    (two costs each within 1e-3 of the twin's can swap their order only
-    closer than that). Prints each check, the twin's time, the build
+    for bit; pixels outside the launch or with a NaN held cost keep their
+    plane and cost; and the kept candidate is the twin's wherever the
+    twin's costs of the two choices lie more than 2e-3 apart (two costs
+    each within 1e-3 of the twin's can swap their order only closer than
+    that). Prints each check, the twin's time, the build
     seconds and, from `bench_patch_match.launch_times`, each kind's time
     and bound; the report's headline (ms, bound_ms, plain_ms) is the
     photometric propagation launch's."""
@@ -445,8 +444,6 @@ def patch_match_kernel() -> dict:
     held_d, held_n = planes[0]
     cand_d = torch.stack([p[0] for p in planes[1:]])
     cand_n = torch.stack([p[1] for p in planes[1:]])
-    ys, xs = pm._pixel_grid(h, w, gt.device)
-    colour0 = ((ys + xs) % 2) == 0
     report = {"name": "patch_match_cost", "route": "cuda",
               "source": "colmap_tpu_torch/csrc/patch_match_cost.cu",
               "replaces": None, "library_ms": None, "build_s": build_s,
@@ -455,18 +452,18 @@ def patch_match_kernel() -> dict:
     for geom in (False, True):
         opts = pm.PatchMatchOptions(geom_consistency=geom)
         pre = pm._precompute(problem, opts)
-        sets = pm._checker_sets(pre)
-        whole = [pm._pixel_set(pre, torch.arange(h * w, device=gt.device))]
+        select = pm._selector(problem, pre, opts)
+        tables = pm._twin_tables(problem, pre, opts,
+                                 pm._colours(h, w, gt.device))
         held_c = torch.empty((h, w), device=gt.device)
-        pm._keep_better(problem, pre, opts, sets, held_d[None], held_n[None],
-                        held_c)
+        select(None, held_d[None], held_n[None], held_c)
         held_c.view(-1)[::97] = float("nan")
-        for kind, kind_sets, c, active in (
-                ("init", sets, 1, None), ("propagation", sets[1:], 6, None),
-                ("refinement", sets, 2, None), ("masked", whole, 6, colour0)):
+        for kind, colour, c in (("init", None, 1), ("propagation", 1, 6),
+                                ("refinement", None, 2)):
             report["shapes"].append(pm_launch_against_twin(
-                problem, pre, opts, kind, kind_sets, cand_d[:c].contiguous(),
-                cand_n[:c].contiguous(), held_d, held_n, held_c, active))
+                problem, pre, opts, kind, select, colour, tables,
+                cand_d[:c].contiguous(), cand_n[:c].contiguous(), held_d,
+                held_n, held_c))
     report["launch_kinds"] = bench_patch_match.launch_times()
     for k in report["launch_kinds"]:
         phase(f"[pm-kernel] {'geometric' if k['geometric'] else 'photometric'}"
@@ -483,12 +480,14 @@ def patch_match_kernel() -> dict:
     return report
 
 
-def pm_launch_against_twin(problem, pre, opts, kind, sets, cand_d, cand_n,
-                           held_d, held_n, held_c, active):
-    """One `pm._keep_better` launch of `kind` against
-    `pm._keep_better_reference` on copies of the same inputs (the initial
-    planes: the held planes as the one candidate and no held plane); fails
-    on any check of `patch_match_kernel`, else returns the readings."""
+def pm_launch_against_twin(problem, pre, opts, kind, select, colour,
+                           tables, cand_d, cand_n, held_d, held_n, held_c):
+    """One launch of `kind` through the solver's `select` on checkerboard
+    colour `colour` (None: both) against `pm._keep_better_reference` on
+    the twin's tables `tables` (both colours) and copies of the same
+    inputs (the initial planes: the held planes as the one candidate and
+    no held plane); fails on any check of `patch_match_kernel`, else
+    returns the readings."""
     geom = opts.geom_consistency
     label = f"{'geometric' if geom else 'photometric'} {kind}"
     h, w = held_d.shape
@@ -501,21 +500,24 @@ def pm_launch_against_twin(problem, pre, opts, kind, sets, cand_d, cand_n,
             return (torch.full((h, w), -1.0, device=held_d.device),)
         return held_c.clone(), held_d.clone(), held_n.clone()
 
-    def launch(fn, state):
-        fn(problem, pre, opts, sets, cand_d, cand_n, *state, active=active)
+    sets = tables if colour is None else tables[colour:colour + 1]
+
+    def reference(state):
+        pm._keep_better_reference(problem, pre, opts, sets, cand_d, cand_n,
+                                  *state)
 
     got, ref = fresh(), fresh()
     before, evals = hpm.launches, hpm.evaluations
-    launch(pm._keep_better, got)
+    select(colour, cand_d, cand_n, *got)
     pixels = sum(int(S.idx.numel()) for S in sets)
     if (hpm.launches - before, hpm.evaluations - evals) != (
             1, pixels * cand_d.shape[0]):
         fail(f"{label}: {hpm.launches - before} launches and "
              f"{hpm.evaluations - evals} evaluations for one launch of "
              f"{pixels * cand_d.shape[0]}")
-    launch(pm._keep_better_reference, ref)
+    reference(ref)
     scratch = fresh()
-    twin_ms = cuda_ms(lambda: launch(pm._keep_better_reference, scratch), 3)
+    twin_ms = cuda_ms(lambda: reference(scratch), 3)
     inside = torch.zeros(h * w, dtype=torch.bool, device=held_d.device)
     for S in sets:
         inside[S.idx] = True
@@ -536,8 +538,6 @@ def pm_launch_against_twin(problem, pre, opts, kind, sets, cand_d, cand_n,
         changed = swaps = 0.0
     else:
         keep = ~inside | held_c.isnan()
-        if active is not None:
-            keep |= ~active
         # the twin's cost of each choice at each pixel, the held plane's
         # first
         choice_cost = held_c.expand(cand_d.shape[0] + 1, h, w).clone()
@@ -553,8 +553,8 @@ def pm_launch_against_twin(problem, pre, opts, kind, sets, cand_d, cand_n,
                  f"candidate")
         same_cost = c_got.nan_to_num() == held_c.nan_to_num()
         if not bool(((k_got == -1) & same_cost)[keep].all()):
-            fail(f"{label}: the kernel changed a pixel outside the launch, "
-                 f"outside the mask or with a NaN held cost")
+            fail(f"{label}: the kernel changed a pixel outside the launch "
+                 f"or with a NaN held cost")
         gap = (choice_cost.gather(0, k_got[None] + 1)
                - choice_cost.gather(0, k_ref[None] + 1))[0].abs()
         wrong = (k_got != k_ref) & ~(gap <= 2e-3)

@@ -225,7 +225,7 @@ CELL = (640, 480, 8)  # the dense cell's maps: width, height, sources
 
 
 def launch_times(device="cuda", reps: int = 20) -> list:
-    """One launch of each kind the solver makes (`patch_match._keep_better`:
+    """One launch of each kind the solver makes (`patch_match._selector`:
     the initial planes on every pixel, a propagation half-iteration's 4 +
     num_perturbations candidates on one colour, a refinement
     half-iteration's 2 candidates on both colours) at the cell's shape, on
@@ -237,13 +237,13 @@ def launch_times(device="cuda", reps: int = 20) -> list:
     from colmap_tpu_torch.mvs import hopper_patch_match as hpm
 
     width, height, n_src = CELL
+    colour1 = int(pm._colours(height, width, device)[1].numel())
     out = []
     for geom in (False, True):
         problem, gt = plane_problem(height, width, n_src, device, seed=1,
                                     geom=geom)
         opts = pm.PatchMatchOptions(geom_consistency=geom)
-        pre = pm._precompute(problem, opts)
-        sets = pm._checker_sets(pre)
+        select = pm._selector(problem, pm._precompute(problem, opts), opts)
         c_prop = 4 + opts.num_perturbations
         planes = [plane_candidates(problem, gt, seed=2 + j)
                   for j in range(c_prop + 1)]
@@ -251,17 +251,18 @@ def launch_times(device="cuda", reps: int = 20) -> list:
         cand_n = torch.stack([p[1] for p in planes[1:]])
         depth, normal = planes[0]
         cost = torch.empty_like(depth)
-        for kind, kind_sets, c in (("init", sets, 1),
-                                   ("propagation", sets[1:], c_prop),
-                                   ("refinement", sets, 2)):
+        for kind, colour, pixels, c in (
+                ("init", None, width * height, 1),
+                ("propagation", 1, colour1, c_prop),
+                ("refinement", None, width * height, 2)):
             if kind == "init":
                 args = (depth[None], normal[None], cost)
             else:
                 args = (cand_d[:c], cand_n[:c], cost, depth.clone(),
                         normal.clone())
 
-            def launch(kind_sets=kind_sets, args=args):
-                pm._keep_better(problem, pre, opts, kind_sets, *args)
+            def launch(colour=colour, args=args):
+                select(colour, *args)
 
             before = hpm.launches
             launch()
@@ -269,7 +270,6 @@ def launch_times(device="cuda", reps: int = 20) -> list:
                 raise RuntimeError(f"a {kind} launch took "
                                    f"{hpm.launches - before} launches")
             ms = min(cuda_ms(launch, reps), cuda_ms(launch, reps))
-            pixels = sum(int(S.idx.numel()) for S in kind_sets)
             bound = c * cost_call_bound_ms(pixels, n_src, opts, geom)
             out.append(dict(
                 kind=kind, geometric=geom, width=width, height=height,

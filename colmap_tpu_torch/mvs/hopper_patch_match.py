@@ -19,9 +19,11 @@ warps over 1,584 (6.1). Keep-if-better is strict and in candidate order:
 a NaN cost never wins and a NaN held cost is never beaten. The cost of
 one plane a pixel is the launch's C = 1 case with no held plane.
 
-Its plain PyTorch twin is `_keep_better_reference` in `mvs/patch_match.py`,
-which the solver takes for CPU tensors; CUDA tensors come here and launch
-the kernel or raise. The kernel replaces no TPU kernel (the JAX package
+Its plain PyTorch twin is `_keep_better_reference` in `mvs/patch_match.py`.
+The solver's `_selector` picks once a solve: CUDA tensors come here and
+launch the kernel or raise; CPU tensors take the twin, which alone builds
+the reference patches and their weights (the kernel computes them in
+registers). The kernel replaces no TPU kernel (the JAX package
 computes the cost with XLA ops).
 """
 
@@ -51,7 +53,7 @@ def _library():
 
             lib = load_library("patch_match_cost", ["patch_match_cost.cu"])
             fn = lib.patch_match_cost
-            fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
                            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _lib = lib
@@ -73,15 +75,14 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device):
 
 def select_planes(problem, pre, opts, idx, cand_d: torch.Tensor,
                   cand_n: torch.Tensor, cost: torch.Tensor,
-                  depth: torch.Tensor = None, normal: torch.Tensor = None,
-                  active: torch.Tensor = None) -> None:
+                  depth: torch.Tensor = None,
+                  normal: torch.Tensor = None) -> None:
     """One launch: evaluate the C candidate planes (cand_d [C, H, W],
     cand_n [C, H, W, 3]) at the flat reference pixels `idx` [N] (int64;
     None: every pixel) and, per pixel, replace the held plane (depth
     [H, W], normal [H, W, 3], cost [H, W], updated in place) by candidate j,
-    in order j = 0 .. C-1, where its cost is strictly below the held cost
-    and `active` [H, W] (bool; None: everywhere) holds. A NaN cost never
-    wins and a NaN held cost is never beaten. Without depth and normal
+    in order j = 0 .. C-1, where its cost is strictly below the held cost.
+    A NaN cost never wins and a NaN held cost is never beaten. Without depth and normal
     there is no held plane: C must be 1 and its cost is written. Every
     tensor lies on one CUDA device, float32 and contiguous; the launch goes
     to that device on the calling thread's current stream."""
@@ -113,8 +114,6 @@ def select_planes(problem, pre, opts, idx, cand_d: torch.Tensor,
     if depth is not None:
         checks += [("depth", depth, (h, w), f32),
                    ("normal", normal, (h, w, 3), f32)]
-    if active is not None:
-        checks.append(("active", active, (h, w), torch.bool))
     if geom:
         checks += [("src_depths", problem.src_depths, (s, h, w), f32),
                    ("K_ref", problem.K_ref, (3, 3), f32),
@@ -137,8 +136,8 @@ def select_planes(problem, pre, opts, idx, cand_d: torch.Tensor,
             problem.ref_image.data_ptr(), problem.src_images.data_ptr(),
             pre.rays.data_ptr(), pre.spatial_w.data_ptr(),
             pre.Kinv.data_ptr(), pre.A.data_ptr(), pre.b.data_ptr(),
-            ptr(idx), cand_d.data_ptr(), cand_n.data_ptr(), ptr(active),
-            cost.data_ptr(), ptr(depth), ptr(normal),
+            ptr(idx), cand_d.data_ptr(), cand_n.data_ptr(), cost.data_ptr(),
+            ptr(depth), ptr(normal),
             ptr(problem.src_depths, geom), ptr(problem.K_ref, geom),
             ptr(problem.K_src, geom), ptr(problem.R_rel, geom),
             ptr(problem.t_rel, geom), ptr(pre.Ksrc_inv, geom),

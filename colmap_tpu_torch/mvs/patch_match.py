@@ -22,32 +22,31 @@ is the JAX module's, not the reference's sequential sweep:
   term (forward-backward reprojection against the source depth maps) and
   the NCC filter.
 
-On CUDA tensors a whole half-iteration (`_keep_better`) is one launch of
-the hand-written kernel csrc/patch_match_cost.cu (`hopper_patch_match`):
-it evaluates every candidate plane at every pixel it updates (the warp,
-the samples, the NCC over all sources, the geometric term and the top-k,
-without any [sources, pixels, taps] temporary) and keeps the better in
-candidate order. A solve makes 1 + 2 num_iterations + 2
-num_refinement_iterations launches (17 at the defaults): the initial
-costs, each propagation half-iteration (its 4 + num_perturbations
-candidates on one colour) and each refinement half-iteration (2
-candidates on both colours, which read only candidates built before
-either colour changes). Each launch carries pixels x candidates
-independent evaluations: at 640x480 a propagation launch fills the card
-9.1 times and a refinement launch 6.1 times, where one colour and one
-candidate filled it 1.52 times. The torch code here, `_keep_better_reference`
-(one `_set_cost_reference` per colour and candidate, then torch's select),
-is its plain twin and runs on CPU tensors. Keep-if-better is strict and in
+A solve picks its implementation once (`_selector`): on CUDA tensors a
+whole half-iteration is one launch of the hand-written kernel
+csrc/patch_match_cost.cu (`hopper_patch_match`): it evaluates every
+candidate plane at every pixel it updates (the warp, the samples, the NCC
+over all sources, the geometric term and the top-k, without any [sources,
+pixels, taps] temporary) and keeps the better in candidate order. A solve
+makes 1 + 2 num_iterations + 2 num_refinement_iterations launches (17 at
+the defaults): the initial costs, each propagation half-iteration (its 4 +
+num_perturbations candidates on one colour) and each refinement
+half-iteration (2 candidates on both colours, which read only candidates
+built before either colour changes). On CPU tensors the selector builds
+the plain twin's tables once (`_twin_tables`: the reference patches and
+their bilateral weights per colour) and runs the twin,
+`_keep_better_reference` (one `_set_cost_reference` per colour and
+candidate, then torch's select). Keep-if-better is strict and in
 candidate order: candidate j replaces the held plane where its cost is
 below the held cost, so ties keep the held plane and a NaN cost neither
-wins nor is beaten. The per-solve constants of the cost (the warp's A and
-b, K_src^-1, the taps' spatial weights) come from `_precompute`.
+wins nor is beaten. `_precompute` holds what both read: the rays and the
+per-solve constants of the cost (the warp's A and b, K_src^-1, the taps'
+spatial weights).
 
 The JAX solver evaluates every candidate over the whole image and masks
 the inactive colour. Costs are independent per pixel, so here a
-propagation candidate is evaluated only on the active colour
-(`active_half=True`, the default), with results equal to the masked
-whole-image form (`active_half=False`, kept for that comparison).
+propagation candidate is evaluated only on the active colour, with the
+same results.
 
 The random draws (initial depths and normals, perturbations) come from a
 `Draws` object in the JAX solver's order: `GeneratorDraws` takes them from a
@@ -194,15 +193,13 @@ def _bilinear(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor):
 
 
 class _Precomp(NamedTuple):
+    """What the kernel and the twin both read, once a solve: the rays and
+    the per-solve constants of the cost (the taps' spatial weights, the
+    warp's A = K_src R K_ref^-1 and b = K_src t, and K_src^-1 for the
+    geometric term)."""
+
     rays: torch.Tensor  # [H, W, 3]
-    pix: torch.Tensor  # [H, W, 2]
-    ref_patch: torch.Tensor  # [H, W, P]
-    bil_w: torch.Tensor  # [H, W, P]
-    offs: torch.Tensor  # [P, 2] (oy, ox)
     Kinv: torch.Tensor  # [3, 3] K_ref^-1
-    # the per-solve constants of the cost: the taps' spatial weights, the
-    # warp's A = K_src R K_ref^-1 and b = K_src t, and K_src^-1 for the
-    # geometric term
     spatial_w: torch.Tensor  # [P]
     A: torch.Tensor  # [S, 3, 3]
     b: torch.Tensor  # [S, 3]
@@ -217,47 +214,63 @@ def _pixel_grid(h: int, w: int, device):
 
 def _precompute(problem: PatchMatchProblem,
                 opts: PatchMatchOptions) -> _Precomp:
-    ref = problem.ref_image
-    h, w = ref.shape
-    dev = ref.device
-    offsets = _window_offsets(opts.window_radius, opts.window_step)
-    offs = torch.as_tensor(offsets, device=dev)
-    ys, xs = _pixel_grid(h, w, dev)
+    ys, xs = _pixel_grid(*problem.ref_image.shape, problem.ref_image.device)
     pix = torch.stack([xs.to(_F32) + 0.5, ys.to(_F32) + 0.5], -1)
     Kinv = torch.linalg.inv(problem.K_ref)
     rays = torch.stack([Kinv[c, 0] * pix[..., 0] + Kinv[c, 1] * pix[..., 1]
                         + Kinv[c, 2] for c in range(3)], -1)
+    offsets = _window_offsets(opts.window_radius, opts.window_step)
+    sigma_spatial = (opts.sigma_spatial if opts.sigma_spatial > 0
+                     else float(opts.window_radius))
+    sp = np.exp(-(offsets[:, 0] ** 2 + offsets[:, 1] ** 2)
+                / (2 * sigma_spatial ** 2)).astype(np.float32)
+    return _Precomp(
+        rays=rays, Kinv=Kinv.contiguous(),
+        spatial_w=torch.as_tensor(sp, device=pix.device),
+        A=problem.K_src @ problem.R_rel @ Kinv,
+        b=(problem.K_src @ problem.t_rel[..., None])[..., 0],
+        Ksrc_inv=torch.linalg.inv(problem.K_src).contiguous())
 
+
+def _colours(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two colours of the checkerboard as flat pixel indices [N]
+    (int64, ascending): (y + x) even, then odd."""
+    ys, xs = _pixel_grid(h, w, device)
+    colour = ((ys + xs) % 2).reshape(-1)
+    return tuple(torch.nonzero(colour == c).reshape(-1) for c in (0, 1))
+
+
+# -- the twin's tables ---------------------------------------------------------
+
+
+def _twin_image(problem: PatchMatchProblem, pre: _Precomp,
+                opts: PatchMatchOptions):
+    """The twin's tables over the reference image: the patches [H, W, P]
+    (0 outside the image) and their bilateral weights [H, W, P]."""
+    ref = problem.ref_image
+    h, w = ref.shape
+    dev = ref.device
     # ref patches via one gather over [H, W, P] integer coords
-    oi = offs.to(torch.int64)
+    ys, xs = _pixel_grid(h, w, dev)
+    oi = torch.as_tensor(_window_offsets(opts.window_radius,
+                                         opts.window_step),
+                         device=dev).to(torch.int64)
     py = ys[..., None] + oi[:, 0]
     px = xs[..., None] + oi[:, 1]
     inb = (py >= 0) & (py < h) & (px >= 0) & (px < w)
     idx = py.clamp(0, h - 1) * w + px.clamp(0, w - 1)
     ref_patch = torch.where(inb, ref.reshape(-1).take(idx),
                             torch.zeros((), device=dev))
-
     # bilateral weights (reference: PhotoConsistencyCostComputer :411)
     col = torch.exp(-(ref_patch - ref[..., None]) ** 2
                     / (2 * opts.sigma_color ** 2))
-    sigma_spatial = (opts.sigma_spatial if opts.sigma_spatial > 0
-                     else float(opts.window_radius))
-    sp = np.exp(-(offsets[:, 0] ** 2 + offsets[:, 1] ** 2)
-                / (2 * sigma_spatial ** 2)).astype(np.float32)
-    spatial_w = torch.as_tensor(sp, device=dev)
-    bil_w = col * spatial_w * inb
-    return _Precomp(
-        rays=rays, pix=pix, ref_patch=ref_patch, bil_w=bil_w, offs=offs,
-        Kinv=Kinv.contiguous(), spatial_w=spatial_w,
-        A=problem.K_src @ problem.R_rel @ Kinv,
-        b=(problem.K_src @ problem.t_rel[..., None])[..., 0],
-        Ksrc_inv=torch.linalg.inv(problem.K_src).contiguous())
+    return ref_patch, col * pre.spatial_w * inb
 
 
-class _PixelSet(NamedTuple):
-    """A set of reference pixels (flat indices) with their per-pixel
-    constants over the window taps: the bilateral weight w, w * r and
-    w * r * r for the reference patch r."""
+class _TwinPixels(NamedTuple):
+    """The twin's constants at a set of reference pixels (flat indices):
+    their centres and rays, and over the window taps the bilateral weight
+    w, w * r and w * r * r for the reference patch r."""
 
     idx: torch.Tensor  # [N] int64
     px: torch.Tensor  # [N]
@@ -268,24 +281,23 @@ class _PixelSet(NamedTuple):
     bwrr: torch.Tensor  # [N, P]
 
 
-def _pixel_set(pre: _Precomp, idx: torch.Tensor) -> _PixelSet:
-    p = pre.ref_patch.shape[-1]
-    pix = pre.pix.reshape(-1, 2)[idx]
-    rp = pre.ref_patch.reshape(-1, p)[idx]
-    bw = pre.bil_w.reshape(-1, p)[idx]
-    bwr = bw * rp
-    return _PixelSet(idx=idx, px=pix[:, 0], py=pix[:, 1],
-                     rays=pre.rays.reshape(-1, 3)[idx], bw=bw, bwr=bwr,
-                     bwrr=bwr * rp)
-
-
-def _checker_sets(pre: _Precomp) -> List[_PixelSet]:
-    """The two colours of the checkerboard: (y + x) even, then odd."""
-    h, w = pre.pix.shape[:2]
-    ys, xs = _pixel_grid(h, w, pre.pix.device)
-    colour = ((ys + xs) % 2).reshape(-1)
-    return [_pixel_set(pre, torch.nonzero(colour == c).reshape(-1))
-            for c in (0, 1)]
+def _twin_tables(problem: PatchMatchProblem, pre: _Precomp,
+                 opts: PatchMatchOptions,
+                 sets: Sequence[torch.Tensor]) -> List[_TwinPixels]:
+    """The twin's constants at each set of flat pixel indices, from one
+    build of its image tables; on any device."""
+    w = problem.ref_image.shape[1]
+    ref_patch, bil_w = (t.reshape(-1, t.shape[-1])
+                        for t in _twin_image(problem, pre, opts))
+    out = []
+    for idx in sets:
+        rp, bw = ref_patch[idx], bil_w[idx]
+        bwr = bw * rp
+        out.append(_TwinPixels(
+            idx=idx, px=(idx % w).to(_F32) + 0.5,
+            py=(idx // w).to(_F32) + 0.5, rays=pre.rays.reshape(-1, 3)[idx],
+            bw=bw, bwr=bwr, bwrr=bwr * rp))
+    return out
 
 
 # -- the cost ------------------------------------------------------------------
@@ -298,7 +310,8 @@ def _mat3(M: torch.Tensor, v: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             + M[..., c, 2, None] * v[2] for c in range(3)]
 
 
-def _photometric_cost(problem, S: _PixelSet, A, b, m, inv_ndotX, window):
+def _photometric_cost(problem, S: _TwinPixels, A, b, m, inv_ndotX,
+                      window):
     """1 - bilateral NCC of every source [S, N] for the pixels of S; 2
     where fewer than half the taps land in the source or the reference
     patch is flat.
@@ -424,7 +437,7 @@ def _window(opts: PatchMatchOptions) -> np.ndarray:
 
 
 def _set_cost_reference(problem: PatchMatchProblem, pre: _Precomp,
-                        opts: PatchMatchOptions, S: _PixelSet,
+                        opts: PatchMatchOptions, S: _TwinPixels,
                         depth: torch.Tensor,
                         normal: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch twin of the cost kernel, on any device."""
@@ -446,45 +459,48 @@ def _set_cost_reference(problem: PatchMatchProblem, pre: _Precomp,
     return torch.topk(costs, k, dim=0, largest=False).values.mean(0)
 
 
-def _keep_better(problem: PatchMatchProblem, pre: _Precomp,
-                 opts: PatchMatchOptions, sets: Sequence[_PixelSet],
-                 cand_d: torch.Tensor, cand_n: torch.Tensor,
-                 cost: torch.Tensor, depth: Optional[torch.Tensor] = None,
-                 normal: Optional[torch.Tensor] = None,
-                 active: Optional[torch.Tensor] = None) -> None:
-    """Evaluate the C candidate planes (cand_d [C, H, W], cand_n [C, H, W,
-    3]) at the pixels of `sets` (one pixel set, or the disjoint sets that
-    cover the image) and keep each, in order, where its cost is strictly
-    below the held cost and `active` [H, W] (None: everywhere) holds: depth
-    [H, W], normal [H, W, 3] and cost [H, W] are updated in place. Without
-    depth and normal (the initial planes) C is 1 and its cost is written.
-    One span, `patch_match.cost`, per call. CUDA tensors: one launch of the
-    kernel over all the sets' pixels and candidates; CPU tensors: the plain
-    twin `_keep_better_reference`."""
-    # the kernel takes one set's pixels or every pixel; the twin takes
-    # the sets as given, so both refuse what would part them
-    if len(sets) > 1 and sum(S.idx.shape[0] for S in sets) != cost.numel():
-        raise ValueError("several pixel sets must cover the image")
-    with span("patch_match.cost"):
-        if cost.is_cuda:
-            idx = sets[0].idx if len(sets) == 1 else None
-            hopper_patch_match.select_planes(problem, pre, opts, idx, cand_d,
-                                             cand_n, cost, depth, normal,
-                                             active)
-        elif cost.device.type == "cpu":
-            _keep_better_reference(problem, pre, opts, sets, cand_d, cand_n,
-                                   cost, depth, normal, active)
-        else:
-            raise ValueError(f"no PatchMatch cost for device {cost.device}")
+def _selector(problem: PatchMatchProblem, pre: _Precomp,
+              opts: PatchMatchOptions):
+    """The solve's plane selection, its implementation picked once by the
+    problem's device. Returns select(colour, cand_d, cand_n, cost,
+    depth=None, normal=None): evaluate the C candidate planes (cand_d
+    [C, H, W], cand_n [C, H, W, 3]) at the pixels of checkerboard colour
+    `colour` (0, 1, or None: every pixel) and keep each, in order, where
+    its cost is strictly below the held cost: depth [H, W], normal
+    [H, W, 3] and cost [H, W] are updated in place. Without depth and
+    normal (the initial planes) C is 1 and its cost is written. One span,
+    `patch_match.cost`, per call. CUDA tensors: one launch of the kernel;
+    CPU tensors: the twin `_keep_better_reference` on tables built here,
+    once, colour by colour."""
+    dev = problem.ref_image.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no PatchMatch cost for device {dev}")
+    colours = _colours(*problem.ref_image.shape, dev)
+    if dev.type == "cuda":
+        def keep_better(colour, *planes):
+            idx = None if colour is None else colours[colour]
+            hopper_patch_match.select_planes(problem, pre, opts, idx, *planes)
+    else:
+        twin = _twin_tables(problem, pre, opts, colours)
+
+        def keep_better(colour, *planes):
+            _keep_better_reference(
+                problem, pre, opts,
+                twin if colour is None else twin[colour:colour + 1], *planes)
+
+    def select(colour, cand_d, cand_n, cost, depth=None, normal=None):
+        with span("patch_match.cost"):
+            keep_better(colour, cand_d, cand_n, cost, depth, normal)
+
+    return select
 
 
 def _keep_better_reference(problem: PatchMatchProblem, pre: _Precomp,
                            opts: PatchMatchOptions,
-                           sets: Sequence[_PixelSet], cand_d: torch.Tensor,
+                           sets: Sequence[_TwinPixels], cand_d: torch.Tensor,
                            cand_n: torch.Tensor, cost: torch.Tensor,
                            depth: Optional[torch.Tensor] = None,
-                           normal: Optional[torch.Tensor] = None,
-                           active: Optional[torch.Tensor] = None) -> None:
+                           normal: Optional[torch.Tensor] = None) -> None:
     """The plain PyTorch twin of the kernel's launch, on any device: per
     set and candidate, `_set_cost_reference` and a torch select."""
     cf = cost.reshape(-1)
@@ -498,27 +514,9 @@ def _keep_better_reference(problem: PatchMatchProblem, pre: _Precomp,
                 continue
             df, nf = depth.reshape(-1), normal.reshape(-1, 3)
             better = c_c < cf[S.idx]
-            if active is not None:
-                better &= active.reshape(-1)[S.idx]
             df[S.idx] = torch.where(better, d_c, df[S.idx])
             nf[S.idx] = torch.where(better[:, None], n_c, nf[S.idx])
             cf[S.idx] = torch.where(better, c_c, cf[S.idx])
-
-
-def _cost_fn(problem: PatchMatchProblem, pre: _Precomp,
-             opts: PatchMatchOptions):
-    """Returns cost(depth [H, W], normal [H, W, 3]) -> [H, W]: one
-    `_keep_better` call over both colours with the planes as its one
-    candidate and no held plane."""
-    sets = _checker_sets(pre)
-
-    def cost(depth, normal):
-        out = torch.empty(depth.shape, dtype=_F32, device=depth.device)
-        _keep_better(problem, pre, opts, sets, depth.contiguous()[None],
-                     normal.contiguous()[None], out)
-        return out
-
-    return cost
 
 
 # -- the solver ----------------------------------------------------------------
@@ -560,8 +558,7 @@ def _perturb(draw, depth, normal, rays, scale: float):
 
 @torch.no_grad()
 def patch_match(draws, problem: PatchMatchProblem,
-                options: PatchMatchOptions = PatchMatchOptions(),
-                active_half: bool = True):
+                options: PatchMatchOptions = PatchMatchOptions()):
     """Run PatchMatch; returns (depth [H,W], normal [H,W,3], cost [H,W]) on
     the problem's device. `draws` is a GeneratorDraws or RecordedDraws.
 
@@ -570,25 +567,24 @@ def patch_match(draws, problem: PatchMatchProblem,
     inside it `patch_match.precompute`, `patch_match.init`, one
     `patch_match.propagation` and one `patch_match.refinement` per
     half-iteration, `patch_match.filter`, and inside init and each
-    half-iteration one `patch_match.cost` (`_keep_better`: on CUDA one
+    half-iteration one `patch_match.cost` (`_selector`: on CUDA one
     kernel launch), 37 spans a solve at the defaults.
     """
     with span("patch_match"):
-        return _patch_match(draws, problem, options, active_half)
+        return _patch_match(draws, problem, options)
 
 
 def _patch_match(draws, problem: PatchMatchProblem,
-                 options: PatchMatchOptions, active_half: bool):
+                 options: PatchMatchOptions):
     ref = problem.ref_image
     h, w = ref.shape
     dev = ref.device
     opts = options
     with span("patch_match.precompute"):
         pre = _precompute(problem, opts)
+        select = _selector(problem, pre, opts)
         rays = pre.rays
         dmin, dmax = problem.depth_min, problem.depth_max
-        sets = _checker_sets(pre) if active_half else [
-            _pixel_set(pre, torch.arange(h * w, device=dev))]
 
     with span("patch_match.init"):
         u0, g0 = (t.to(dev) for t in draws.initial())
@@ -597,10 +593,7 @@ def _patch_match(draws, problem: PatchMatchProblem,
         depth = torch.exp(u0 * (log_hi - log_lo) + log_lo)
         normal = _random_normals(g0, rays)
         cost = torch.empty((h, w), dtype=_F32, device=dev)
-        _keep_better(problem, pre, opts, sets, depth[None], normal[None],
-                     cost)
-        ys, xs = _pixel_grid(h, w, dev)
-        checker = ((ys + xs) % 2).to(torch.bool)
+        select(None, depth[None], normal[None], cost)
 
     def draw():
         return tuple(t.to(dev) for t in draws.perturbation())
@@ -616,13 +609,8 @@ def _patch_match(draws, problem: PatchMatchProblem,
             cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin,
                                  dmax)
             cand_n = torch.stack([c[1] for c in cand])
-            if active_half:
-                # colour (y + x) % 2 == 1 is active on even half-iterations
-                _keep_better(problem, pre, opts, [sets[(i + 1) % 2]], cand_d,
-                             cand_n, cost, depth, normal)
-            else:
-                _keep_better(problem, pre, opts, sets, cand_d, cand_n, cost,
-                             depth, normal, checker ^ bool(i % 2))
+            # colour (y + x) % 2 == 1 is active on even half-iterations
+            select((i + 1) % 2, cand_d, cand_n, cost, depth, normal)
 
     for i in range(2 * opts.num_refinement_iterations):
         with span("patch_match.refinement", iteration=i):
@@ -634,8 +622,7 @@ def _patch_match(draws, problem: PatchMatchProblem,
             cand_n = torch.stack([c[1] for c in cand])
             # both colours at once: the candidates are built before either
             # colour changes, as when the colours ran one after the other
-            _keep_better(problem, pre, opts, sets, cand_d, cand_n, cost,
-                         depth, normal)
+            select(None, cand_d, cand_n, cost, depth, normal)
 
     with span("patch_match.filter"):
         if opts.filter:

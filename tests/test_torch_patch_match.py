@@ -12,14 +12,14 @@ replaying `patch_match`'s `jax.random.split` chain, 2 iterations): depth
 within 1e-3 relative and the same filter mask on >= 99% of the pixels
 (near-ties in `c_c < cost` and in the top-k flip single pixels between f32
 orders); the port's own generator held to tests/test_mvs.py's gates on the
-4-image 160x120 room; and the active-colour evaluation equal to the masked
-whole-image one. The per-solve constants that `_precompute` hoists out of
-the cost are the ones the cost computed per call, and CPU tensors never
-reach the kernel. The solver, which selects a whole half-iteration's
-candidates in one call (`_keep_better`), gives the maps of the loop it
-replaced (one one-candidate call per colour and candidate, then torch's
-select; kept here as `_patch_match_loop`), bit for bit, on the CPU and on
-the card.
+4-image 160x120 room. The per-solve constants that `_precompute` hoists out
+of the cost are the ones the cost computed per call, none of its fields is
+larger than the rays, the twin's tables are built once a solve, and CPU
+tensors never reach the kernel. The solver, which selects a whole
+half-iteration's candidates in one call (`_selector`), gives the maps of
+the loop it replaced (one one-candidate call per colour and candidate,
+then torch's select; kept here as `_patch_match_loop`), bit for bit, on
+the CPU (also at 53x37, colours of 981 and 980 pixels) and on the card.
 
 On the card (`-m cuda`; the tests skip without a CUDA device): the cost
 kernel (`hopper_patch_match`, one launch of one candidate with no held
@@ -36,7 +36,7 @@ of the same inputs (on the CPU too, at 96x72), and the kernel launches
 once per call and refuses sizes beyond its limits. One launch of a
 half-iteration's C candidates (`hopper_patch_match.select_planes`: the
 initial planes, a propagation half-iteration on one colour, a refinement
-half-iteration on both colours, the masked whole-image form) gives the
+half-iteration on both colours) gives the
 depths, normals and costs of C one-candidate launches and torch's select,
 bit for bit, on the cell's own scene in both passes and at a size that is
 no multiple of the kernel's block; a solve makes 17 launches and
@@ -151,13 +151,25 @@ def jax_draws(key, h, w, opts):
 
 @needs_jax
 def test_precompute_matches_jax(small_room):
+    """Every field of JAX's `_precompute`: the rays and K_ref^-1 from
+    `_Precomp`, the pixel centres, reference patches and bilateral weights
+    from the twin's tables, the window offsets."""
     arrs, _ = _problem_arrays(small_room)
     jp, tp = _problems(arrs)
     jo, to = _options()
     ref = jpm._precompute(jp, jo)
-    got = tpm._precompute(tp, to)
+    pre = tpm._precompute(tp, to)
+    h, w = tp.ref_image.shape
+    ref_patch, _ = tpm._twin_image(tp, pre, to)
+    whole = _twin_pixels(tp, pre, to, None)
+    got = dict(rays=pre.rays, Kinv=pre.Kinv, ref_patch=ref_patch,
+               pix=torch.stack([whole.px, whole.py], -1).reshape(h, w, 2),
+               bil_w=whole.bw.reshape(h, w, -1),
+               offs=torch.as_tensor(tpm._window_offsets(to.window_radius,
+                                                        to.window_step)))
+    assert set(got) == set(ref._fields)
     for field in ref._fields:
-        np.testing.assert_allclose(getattr(got, field).numpy(),
+        np.testing.assert_allclose(got[field].numpy(),
                                    np.asarray(getattr(ref, field)),
                                    atol=1e-6, err_msg=field)
 
@@ -199,7 +211,7 @@ def test_cost_matches_jax(small_room, six_room, geom, srcs, radius, step):
     depth, normal = _planes(arrs, gt, seed=1)
     ref = np.asarray(jpm._cost_fn(jp, jpm._precompute(jp, jo), jo)(
         jnp.asarray(depth), jnp.asarray(normal)))
-    got = tpm._cost_fn(tp, tpm._precompute(tp, to), to)(
+    got = _cost_fn(tp, tpm._precompute(tp, to), to)(
         torch.as_tensor(depth), torch.as_tensor(normal)).numpy()
     # the NCC's one-pass variances (E[x^2] - E[x]^2) of low-texture patches
     # lose ~1e-4 to f32 rounding in either package, and the packages sum the
@@ -274,72 +286,76 @@ def test_port_generator_meets_jax_gates():
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("geom", [False, True])
-def test_active_half_equals_whole_image(geom):
-    room = _room(48, 36, 42.0)
-    arrs, _ = _problem_arrays(room, geom=geom)
-    tp = _problems(arrs)[1]
-    to = tpm.PatchMatchOptions(num_iterations=2, geom_consistency=geom)
-    outs = []
-    for active_half in (True, False):
-        g = torch.Generator().manual_seed(5)
-        outs.append(tpm.patch_match(tpm.GeneratorDraws(g, (36, 48)), tp, to,
-                                    active_half=active_half))
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
-    assert (outs[0][0] > 0).float().mean() > 0.2
+def _twin_pixels(problem, pre, opts, colour):
+    """The twin's tables at checkerboard colour `colour`'s pixels (None:
+    every pixel)."""
+    h, w = problem.ref_image.shape
+    dev = problem.ref_image.device
+    idx = (torch.arange(h * w, device=dev) if colour is None
+           else tpm._colours(h, w, dev)[colour])
+    return tpm._twin_tables(problem, pre, opts, [idx])[0]
 
 
-def _costs_at(problem, pre, opts, S, depth, normal):
-    """The costs at the pixels of S of the planes depth [H, W], normal
-    [H, W, 3]: one `_keep_better` call with them as its one candidate and
-    no held plane (on CUDA one launch of the kernel, on the CPU the
-    twin)."""
+def _costs_at(select, colour, idx, depth, normal):
+    """The costs at the flat pixels `idx` of colour `colour` (None: every
+    pixel) of the planes depth [H, W], normal [H, W, 3]: one selector call
+    with them as its one candidate and no held plane (on CUDA one launch
+    of the kernel, on the CPU the twin)."""
     cost = torch.empty(depth.shape, dtype=torch.float32, device=depth.device)
-    tpm._keep_better(problem, pre, opts, [S], depth.contiguous()[None],
-                     normal.contiguous()[None], cost)
-    return cost.view(-1)[S.idx]
+    select(colour, depth.contiguous()[None], normal.contiguous()[None], cost)
+    return cost.view(-1)[idx]
 
 
-def _select_by_calls(problem, pre, opts, S, active, cand_d, cand_n, depth,
-                     normal, cost):
+def _cost_fn(problem, pre, opts):
+    """Returns cost(depth [H, W], normal [H, W, 3]) -> [H, W]: one selector
+    call on every pixel with the planes as its one candidate and no held
+    plane."""
+    select = tpm._selector(problem, pre, opts)
+
+    def cost(depth, normal):
+        out = torch.empty(depth.shape, dtype=torch.float32,
+                          device=depth.device)
+        select(None, depth.contiguous()[None], normal.contiguous()[None], out)
+        return out
+
+    return cost
+
+
+def _select_by_calls(select, colour, idx, cand_d, cand_n, depth, normal,
+                     cost):
     """The solver's selection before it went into one launch: per
-    candidate its cost at the pixels of S (`_costs_at`: on CUDA one launch
-    with one candidate) and torch's keep-if-better there."""
+    candidate its cost at the pixels `idx` of colour `colour` (`_costs_at`:
+    on CUDA one launch with one candidate) and torch's keep-if-better
+    there."""
     df, nf, cf = depth.reshape(-1), normal.reshape(-1, 3), cost.reshape(-1)
     for d_c, n_c in zip(cand_d, cand_n):
-        c_c = _costs_at(problem, pre, opts, S, d_c, n_c)
-        d_c = d_c.reshape(-1)[S.idx]
-        n_c = n_c.reshape(-1, 3)[S.idx]
-        better = c_c < cf[S.idx]
-        if active is not None:
-            better &= active.reshape(-1)[S.idx]
-        df[S.idx] = torch.where(better, d_c, df[S.idx])
-        nf[S.idx] = torch.where(better[:, None], n_c, nf[S.idx])
-        cf[S.idx] = torch.where(better, c_c, cf[S.idx])
+        c_c = _costs_at(select, colour, idx, d_c, n_c)
+        d_c = d_c.reshape(-1)[idx]
+        n_c = n_c.reshape(-1, 3)[idx]
+        better = c_c < cf[idx]
+        df[idx] = torch.where(better, d_c, df[idx])
+        nf[idx] = torch.where(better[:, None], n_c, nf[idx])
+        cf[idx] = torch.where(better, c_c, cf[idx])
 
 
-def _patch_match_loop(draws, problem, opts, active_half=True):
+def _patch_match_loop(draws, problem, opts):
     """The solver as it was before a half-iteration became one call: the
     initial costs, each candidate and each colour one `_costs_at` call,
     selected by `_select_by_calls`."""
     h, w = problem.ref_image.shape
     dev = problem.ref_image.device
     pre = tpm._precompute(problem, opts)
+    select = tpm._selector(problem, pre, opts)
+    colours = tpm._colours(h, w, dev)
     rays = pre.rays
     dmin, dmax = problem.depth_min, problem.depth_max
-    sets = tpm._checker_sets(pre) if active_half else [
-        tpm._pixel_set(pre, torch.arange(h * w, device=dev))]
     u0, g0 = (t.to(dev) for t in draws.initial())
     log_lo, log_hi = torch.log(dmin), torch.log(dmax)
     depth = torch.exp(u0 * (log_hi - log_lo) + log_lo)
     normal = tpm._random_normals(g0, rays)
     cost = torch.empty((h, w), dtype=torch.float32, device=dev)
-    for S in sets:
-        cost.reshape(-1)[S.idx] = _costs_at(problem, pre, opts, S, depth,
-                                            normal)
-    ys, xs = tpm._pixel_grid(h, w, dev)
-    checker = ((ys + xs) % 2).to(torch.bool)
+    for c, idx in enumerate(colours):
+        cost.reshape(-1)[idx] = _costs_at(select, c, idx, depth, normal)
 
     def draw():
         return tuple(t.to(dev) for t in draws.perturbation())
@@ -353,22 +369,18 @@ def _patch_match_loop(draws, problem, opts, active_half=True):
                  for j in range(opts.num_perturbations)]
         cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin, dmax)
         cand_n = torch.stack([c[1] for c in cand])
-        if active_half:
-            _select_by_calls(problem, pre, opts, sets[(i + 1) % 2], None,
-                             cand_d, cand_n, depth, normal, cost)
-        else:
-            _select_by_calls(problem, pre, opts, sets[0],
-                             checker ^ bool(i % 2), cand_d, cand_n, depth,
-                             normal, cost)
+        c = (i + 1) % 2
+        _select_by_calls(select, c, colours[c], cand_d, cand_n, depth,
+                         normal, cost)
     for i in range(2 * opts.num_refinement_iterations):
         scale = 0.02 * 2.0 ** -float(i // 2)
         cand = [tpm._perturb(draw(), depth, normal, rays, scale / (j + 1))
                 for j in range(2)]
         cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin, dmax)
         cand_n = torch.stack([c[1] for c in cand])
-        for S in sets:
-            _select_by_calls(problem, pre, opts, S, None, cand_d, cand_n,
-                             depth, normal, cost)
+        for c, idx in enumerate(colours):
+            _select_by_calls(select, c, idx, cand_d, cand_n, depth, normal,
+                             cost)
     if opts.filter:
         thresh = 1.0 - opts.filter_min_ncc
         if opts.geom_consistency:
@@ -380,30 +392,31 @@ def _patch_match_loop(draws, problem, opts, active_half=True):
     return depth, normal, cost
 
 
-def _solver_against_loop(problem, opts, active_half, seed):
+def _solver_against_loop(problem, opts, seed):
     """The solver and `_patch_match_loop` on the same draws: equal maps."""
     shape = tuple(problem.ref_image.shape)
     outs = []
     for solve in (tpm.patch_match, _patch_match_loop):
         g = torch.Generator(device=problem.ref_image.device).manual_seed(seed)
-        outs.append(solve(tpm.GeneratorDraws(g, shape), problem, opts,
-                          active_half=active_half))
+        outs.append(solve(tpm.GeneratorDraws(g, shape), problem, opts))
     for got, ref, name in zip(*outs, ("depth", "normal", "cost")):
         assert torch.equal(got, ref), (name, int((got != ref).sum()))
     return outs[0]
 
 
-@pytest.mark.parametrize("active_half", [True, False])
+@pytest.mark.parametrize("size", [(48, 36), (53, 37)],
+                         ids=["48x36", "53x37"])
 @pytest.mark.parametrize("geom", [False, True])
-def test_solver_equals_the_per_candidate_loop(geom, active_half):
+def test_solver_equals_the_per_candidate_loop(geom, size):
     """On the CPU the solver's one call a half-iteration (the twin
     `_keep_better_reference`) gives the maps of the per-candidate loop at a
-    fixed seed, bit for bit."""
-    room = _room(48, 36, 42.0)
+    fixed seed, bit for bit; at 53x37 the colours hold 981 and 980 pixels,
+    neither a multiple of 32."""
+    width, height = size
+    room = _room(width, height, 0.875 * width)
     arrs, _ = _problem_arrays(room, geom=geom)
     opts = tpm.PatchMatchOptions(num_iterations=2, geom_consistency=geom)
-    depth, _, _ = _solver_against_loop(_torch_problem(arrs), opts,
-                                       active_half, seed=7)
+    depth, _, _ = _solver_against_loop(_torch_problem(arrs), opts, seed=7)
     assert float((depth > 0).float().mean()) > 0.2
 
 
@@ -435,7 +448,8 @@ def test_twin_against_float64(small_room, geom):
     opts = tpm.PatchMatchOptions(geom_consistency=geom)
     pre = tpm._precompute(tp, opts)
     depth, normal = (torch.as_tensor(x) for x in _planes(arrs, gt, seed=1))
-    for S in tpm._checker_sets(pre):
+    for colour in (0, 1):
+        S = _twin_pixels(tp, pre, opts, colour)
         d, n = depth.reshape(-1)[S.idx], normal.reshape(-1, 3)[S.idx]
         got = tpm._set_cost_reference(tp, pre, opts, S, d, n)
         exact = _float64_costs(tp, pre, opts, S, d, n)
@@ -449,10 +463,11 @@ def test_twin_against_float64(small_room, geom):
 def test_precompute_hoists_the_cost_constants(small_room):
     """A = K_src R K_ref^-1, b = K_src t and K_src^-1, once a solve, are
     what the cost computed on every call, bit for bit; and the taps'
-    spatial weights are the factor of `bil_w`."""
+    spatial weights are the factor of the twin's bilateral weights."""
     arrs, _ = _problem_arrays(small_room, geom=True)
     tp = _torch_problem(arrs)
-    pre = tpm._precompute(tp, tpm.PatchMatchOptions())
+    opts = tpm.PatchMatchOptions()
+    pre = tpm._precompute(tp, opts)
     Kinv = torch.linalg.inv(tp.K_ref)
     assert torch.equal(pre.Kinv, Kinv)
     assert pre.Kinv.is_contiguous() and pre.Ksrc_inv.is_contiguous()
@@ -460,9 +475,50 @@ def test_precompute_hoists_the_cost_constants(small_room):
     assert torch.equal(pre.b, (tp.K_src @ tp.t_rel[..., None])[..., 0])
     assert torch.equal(pre.Ksrc_inv, torch.linalg.inv(tp.K_src))
     assert pre.spatial_w.shape == (121,) and pre.spatial_w.max() == 1.0
-    inb = pre.bil_w > 0
-    col = pre.bil_w[inb] / pre.spatial_w.expand_as(pre.bil_w)[inb]
+    _, bil_w = tpm._twin_image(tp, pre, opts)
+    inb = bil_w > 0
+    col = bil_w[inb] / pre.spatial_w.expand_as(bil_w)[inb]
     assert float(col.max()) <= 1.0 + 1e-6
+
+
+def test_precompute_holds_only_what_the_kernel_reads(small_room):
+    """`_Precomp` holds what the kernel and the twin both read, none of it
+    larger than the rays [H, W, 3]: the twin's [H, W, P] tables are built
+    by the twin alone."""
+    arrs, gt = _problem_arrays(small_room, geom=True)
+    tp = _torch_problem(arrs)
+    pre = tpm._precompute(tp, tpm.PatchMatchOptions(geom_consistency=True))
+    assert set(pre._fields) == {"rays", "Kinv", "spatial_w", "A", "b",
+                                "Ksrc_inv"}
+    for name, t in pre._asdict().items():
+        assert t.numel() <= gt.size * 3, (name, tuple(t.shape))
+
+
+def test_twin_builds_its_tables_once_a_solve(monkeypatch):
+    """A CPU solve at the defaults builds the twin's tables once, in its
+    precompute, for all 17 of its selections (one `patch_match.cost` span
+    each)."""
+    calls = {"_twin_tables": 0, "_keep_better_reference": 0}
+
+    def counted(name):
+        fn = getattr(tpm, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(tpm, name, call)
+
+    counted("_twin_tables")
+    counted("_keep_better_reference")
+    arrs, gt = _problem_arrays(_room(48, 36, 42.0))
+    g = torch.Generator().manual_seed(1)
+    with timer.span("test.solve") as job:
+        tpm.patch_match(tpm.GeneratorDraws(g, gt.shape), _torch_problem(arrs),
+                        tpm.PatchMatchOptions())
+    spans = timer.job_spans(job.id)
+    assert calls == {"_twin_tables": 1, "_keep_better_reference": 17}
+    assert sum(s.name == "patch_match.cost" for s in spans) == 17
 
 
 def test_valid_share_test_is_exact():
@@ -484,7 +540,7 @@ def test_cpu_tensors_never_reach_the_kernel(small_room):
     g = torch.Generator().manual_seed(3)
     depth, _, _ = tpm.patch_match(tpm.GeneratorDraws(g, gt.shape), tp, opts)
     d, n = _planes(arrs, gt, seed=4)
-    tpm._cost_fn(tp, tpm._precompute(tp, opts), opts)(
+    _cost_fn(tp, tpm._precompute(tp, opts), opts)(
         torch.as_tensor(d), torch.as_tensor(n))
     assert hpm.launches == before == 0
     assert hpm._lib is None
@@ -496,19 +552,15 @@ def test_kernel_wrapper_refuses_what_it_cannot_launch(small_room):
     tp = _torch_problem(arrs)
     opts = tpm.PatchMatchOptions()
     pre = tpm._precompute(tp, opts)
-    S = tpm._checker_sets(pre)[0]
+    idx = tpm._colours(*gt.shape, "cpu")[0]
     depth, normal = (torch.as_tensor(x) for x in _planes(arrs, gt, seed=6))
     cost = torch.zeros(depth.shape)
-    # several sets are taken as the whole image, so they must cover it
-    with pytest.raises(ValueError, match="must cover the image"):
-        tpm._keep_better(tp, pre, opts, [S, tpm._pixel_set(pre, S.idx[:3])],
-                         depth[None], normal[None], cost)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        hpm.select_planes(tp, pre, opts, S.idx, depth[None], normal[None],
+        hpm.select_planes(tp, pre, opts, idx, depth[None], normal[None],
                           cost, depth, normal)
     with pytest.raises(ValueError, match="no PatchMatch cost"):
-        tpm._keep_better(tp, pre, opts, [S], depth[None].to("meta"),
-                         normal[None].to("meta"), cost.to("meta"))
+        tpm._selector(tp._replace(ref_image=tp.ref_image.to("meta")), pre,
+                      opts)
     assert hpm.launches == hpm.evaluations == 0
 
 
@@ -522,14 +574,16 @@ def cuda():
     return "cuda"
 
 
-def _kernel_against_twin(problem, opts, S, depth, normal, pre=None):
-    """One `_costs_at` call (one launch) against the twin on the same
-    CUDA inputs; returns the twin's costs."""
-    pre = pre if pre is not None else tpm._precompute(problem, opts)
+def _kernel_against_twin(problem, pre, opts, colour, depth, normal):
+    """One `_costs_at` call (one launch) at colour `colour`'s pixels (None:
+    every pixel) against the twin on the same CUDA inputs; returns the
+    twin's costs."""
+    S = _twin_pixels(problem, pre, opts, colour)
     d = depth.reshape(-1)[S.idx]
     n = normal.reshape(-1, 3)[S.idx]
+    select = tpm._selector(problem, pre, opts)
     before = hpm.launches
-    got = _costs_at(problem, pre, opts, S, depth, normal)
+    got = _costs_at(select, colour, S.idx, depth, normal)
     assert hpm.launches == before + 1
     ref = tpm._set_cost_reference(problem, pre, opts, S, d, n)
     torch.cuda.synchronize()
@@ -557,11 +611,10 @@ def test_kernel_equals_twin_at_the_cell(cuda, geom, which):
     problem, gt = bpm.plane_problem(480, 640, 8, cuda, seed=1, geom=geom)
     opts = tpm.PatchMatchOptions(geom_consistency=geom)
     pre = tpm._precompute(problem, opts)
-    S = (tpm._pixel_set(pre, torch.arange(gt.numel(), device=cuda))
-         if which == "whole" else tpm._checker_sets(pre)[int(which[-1])])
+    colour = None if which == "whole" else int(which[-1])
     depth, normal = bpm.plane_candidates(problem, gt, seed=2)
     _reaches_every_branch(
-        _kernel_against_twin(problem, opts, S, depth, normal, pre))
+        _kernel_against_twin(problem, pre, opts, colour, depth, normal))
 
 
 def _cell_scene(device, seed):
@@ -644,10 +697,12 @@ def test_kernel_against_float64_on_the_cells_scene(cuda, geom):
                          noise + torch.tensor([0, 0, -3.0], device=cuda))
     normal = normal / normal.norm(dim=-1, keepdim=True)
     errs = {"kernel": [], "twin": [], "kernel-twin": []}
-    for S in tpm._checker_sets(pre):
+    select = tpm._selector(problem, pre, opts)
+    for colour in (0, 1):
+        S = _twin_pixels(problem, pre, opts, colour)
         d, n = depth.reshape(-1)[S.idx], normal.reshape(-1, 3)[S.idx]
         before = hpm.launches
-        got = _costs_at(problem, pre, opts, S, depth, normal)
+        got = _costs_at(select, colour, S.idx, depth, normal)
         assert hpm.launches == before + 1
         twin = tpm._set_cost_reference(problem, pre, opts, S, d, n)
         exact = _float64_costs(problem, pre, opts, S, d, n)
@@ -689,9 +744,11 @@ def test_kernel_against_float64_on_flat_windows(cuda, smooth_room, geom):
     depth, normal = (torch.as_tensor(x, device=cuda)
                      for x in _planes(arrs, gt, seed=0))
     errs = {"kernel": [], "twin": []}
-    for S in tpm._checker_sets(pre):
+    select = tpm._selector(problem, pre, opts)
+    for colour in (0, 1):
+        S = _twin_pixels(problem, pre, opts, colour)
         d, n = depth.reshape(-1)[S.idx], normal.reshape(-1, 3)[S.idx]
-        got = _costs_at(problem, pre, opts, S, depth, normal)
+        got = _costs_at(select, colour, S.idx, depth, normal)
         twin = tpm._set_cost_reference(problem, pre, opts, S, d, n)
         exact = _float64_costs(problem, pre, opts, S, d, n)
         errs["kernel"].append((got.double() - exact).abs())
@@ -716,8 +773,8 @@ def test_kernel_equals_twin_across_sources(cuda, n_src, geom):
     opts = tpm.PatchMatchOptions(geom_consistency=geom)
     pre = tpm._precompute(problem, opts)
     depth, normal = bpm.plane_candidates(problem, gt, seed=3)
-    for S in tpm._checker_sets(pre):
-        _kernel_against_twin(problem, opts, S, depth, normal, pre)
+    for colour in (0, 1):
+        _kernel_against_twin(problem, pre, opts, colour, depth, normal)
 
 
 @pytest.mark.cuda
@@ -729,8 +786,8 @@ def test_kernel_equals_twin_across_windows(cuda, radius, step, geom):
                                  geom_consistency=geom, top_k=3)
     pre = tpm._precompute(problem, opts)
     depth, normal = bpm.plane_candidates(problem, gt, seed=4)
-    _reaches_every_branch(_kernel_against_twin(
-        problem, opts, tpm._checker_sets(pre)[1], depth, normal, pre))
+    _reaches_every_branch(
+        _kernel_against_twin(problem, pre, opts, 1, depth, normal))
 
 
 @pytest.mark.cuda
@@ -742,8 +799,8 @@ def test_kernel_equals_twin_on_the_small_room(cuda, small_room, geom):
     opts = tpm.PatchMatchOptions(geom_consistency=geom)
     pre = tpm._precompute(problem, opts)
     d, n = (torch.as_tensor(x, device=cuda) for x in _planes(arrs, gt, 1))
-    for S in tpm._checker_sets(pre):
-        _kernel_against_twin(problem, opts, S, d, n, pre)
+    for colour in (0, 1):
+        _kernel_against_twin(problem, pre, opts, colour, d, n)
 
 
 @pytest.mark.cuda
@@ -753,8 +810,8 @@ def test_kernel_equals_twin_at_2048x1536(cuda):
     opts = tpm.PatchMatchOptions(geom_consistency=True)
     pre = tpm._precompute(problem, opts)
     depth, normal = bpm.plane_candidates(problem, gt, seed=6)
-    _reaches_every_branch(_kernel_against_twin(
-        problem, opts, tpm._checker_sets(pre)[0], depth, normal, pre))
+    _reaches_every_branch(
+        _kernel_against_twin(problem, pre, opts, 0, depth, normal))
 
 
 @pytest.mark.cuda
@@ -763,12 +820,11 @@ def test_kernel_refuses_sizes_beyond_its_limits(cuda):
     comes back as a ValueError, and nothing is counted."""
     problem, gt = bpm.plane_problem(16, 16, 33, cuda, seed=1)
     opts = tpm.PatchMatchOptions(top_k=33)
-    pre = tpm._precompute(problem, opts)
-    S = tpm._checker_sets(pre)[0]
+    select = tpm._selector(problem, tpm._precompute(problem, opts), opts)
     depth, normal = bpm.plane_candidates(problem, gt, seed=2)
     before = hpm.launches
     with pytest.raises(ValueError, match="refused top_k 33, 33 sources"):
-        _costs_at(problem, pre, opts, S, depth, normal)
+        select(0, depth[None], normal[None], torch.empty_like(depth))
     assert hpm.launches == before
 
 
@@ -799,79 +855,71 @@ def test_solver_launches_once_per_cost_call(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("active_half", [True, False])
 @pytest.mark.parametrize("geom", [False, True])
-def test_solver_equals_the_per_candidate_loop_on_the_card(cuda, geom,
-                                                          active_half):
+def test_solver_equals_the_per_candidate_loop_on_the_card(cuda, geom):
     """A whole solve of one launch a half-iteration gives the maps of the
     loop of one-candidate launches and torch's select, bit for bit."""
     problem, gt = bpm.plane_problem(120, 160, 4, cuda, seed=9, geom=geom)
     opts = tpm.PatchMatchOptions(geom_consistency=geom)
-    depth, _, _ = _solver_against_loop(problem, opts, active_half, seed=1)
+    depth, _, _ = _solver_against_loop(problem, opts, seed=1)
     assert float((depth > 0).float().mean()) > 0.5
 
 
-def _launch_cases(problem, gt, pre, seed):
-    """The solver's four kinds of launch on `problem`, each as (name, pixel
-    sets, candidate depths [C, H, W], normals [C, H, W, 3], held planes or
-    None, active mask or None): the initial planes on both colours, a
-    propagation half-iteration (C = 6) on colour 1, a refinement
-    half-iteration (C = 2) on both colours, and the masked whole-image
-    form (C = 6, colour 0 active)."""
-    h, w = gt.shape
-    dev = gt.device
-    sets = tpm._checker_sets(pre)
-    whole = [tpm._pixel_set(pre, torch.arange(h * w, device=dev))]
+def _launch_cases(problem, gt, seed):
+    """The solver's three kinds of launch on `problem`, each as (name,
+    colour or None for both, candidate depths [C, H, W], normals
+    [C, H, W, 3], held planes or None): the initial planes on both
+    colours, a propagation half-iteration (C = 6) on colour 1 and a
+    refinement half-iteration (C = 2) on both colours."""
     planes = [bpm.plane_candidates(problem, gt, seed=seed + j)
               for j in range(7)]
     cand_d = torch.stack([p[0] for p in planes[:6]])
     cand_n = torch.stack([p[1] for p in planes[:6]])
     held = planes[6]
-    ys, xs = tpm._pixel_grid(h, w, dev)
-    colour0 = ((ys + xs) % 2) == 0
     return [
-        ("init", sets, held[0][None], held[1][None], None, None),
-        ("propagation", [sets[1]], cand_d, cand_n, held, None),
-        ("refinement", sets, cand_d[:2].contiguous(),
-         cand_n[:2].contiguous(), held, None),
-        ("masked", whole, cand_d, cand_n, held, colour0),
+        ("init", None, held[0][None], held[1][None], None),
+        ("propagation", 1, cand_d, cand_n, held),
+        ("refinement", None, cand_d[:2].contiguous(),
+         cand_n[:2].contiguous(), held),
     ]
 
 
 def _launch_against_calls(problem, gt, opts, case, seed=3):
-    """One `_keep_better` launch against one one-candidate launch a colour
-    and candidate (`_costs_at`) and torch's select, on the same planes: depth, normal and
-    cost bit for bit (the held costs are the held planes' own, with some
-    NaN). Returns the share of the launch's pixels whose plane changed."""
+    """One selector launch against one one-candidate launch a colour and
+    candidate (`_costs_at`) and torch's select, on the same planes: depth,
+    normal and cost bit for bit (the held costs are the held planes' own,
+    with some NaN). Returns the share of the launch's pixels whose plane
+    changed."""
     pre = tpm._precompute(problem, opts)
-    name, sets, cand_d, cand_n, held, active = next(
-        c for c in _launch_cases(problem, gt, pre, seed) if c[0] == case)
+    select = tpm._selector(problem, pre, opts)
+    name, colour, cand_d, cand_n, held = next(
+        c for c in _launch_cases(problem, gt, seed) if c[0] == case)
     h, w = gt.shape
+    colours = tpm._colours(h, w, gt.device)
+    launched = (0, 1) if colour is None else (colour,)
     states = []
     for batched in (True, False):
         cost = torch.empty((h, w), device=gt.device)
         depth = normal = None
         if held is not None:
             depth, normal = held[0].clone(), held[1].clone()
-            for S in tpm._checker_sets(pre):
-                cost.view(-1)[S.idx] = _costs_at(problem, pre, opts, S,
-                                                 depth, normal)
+            for c, idx in enumerate(colours):
+                cost.view(-1)[idx] = _costs_at(select, c, idx, depth, normal)
             cost.view(-1)[::97] = float("nan")
         before, evals = hpm.launches, hpm.evaluations
         if batched:
-            tpm._keep_better(problem, pre, opts, sets, cand_d, cand_n, cost,
-                             depth, normal, active)
-            n = sum(int(S.idx.numel()) for S in sets)
+            select(colour, cand_d, cand_n, cost, depth, normal)
+            n = sum(int(colours[c].numel()) for c in launched)
             assert hpm.launches - before == 1
             assert hpm.evaluations - evals == n * cand_d.shape[0]
         elif held is None:
-            for S in sets:
-                cost.view(-1)[S.idx] = _costs_at(problem, pre, opts, S,
-                                                 cand_d[0], cand_n[0])
+            for c in launched:
+                cost.view(-1)[colours[c]] = _costs_at(
+                    select, c, colours[c], cand_d[0], cand_n[0])
         else:
-            for S in sets:
-                _select_by_calls(problem, pre, opts, S, active, cand_d,
-                                 cand_n, depth, normal, cost)
+            for c in launched:
+                _select_by_calls(select, c, colours[c], cand_d, cand_n,
+                                 depth, normal, cost)
         torch.cuda.synchronize()
         states.append((cost, depth, normal))
     (c1, d1, n1), (c2, d2, n2) = states
@@ -885,7 +933,7 @@ def _launch_against_calls(problem, gt, opts, case, seed=3):
     return float((d1 != held[0]).float().mean())
 
 
-_CASES = ["init", "propagation", "refinement", "masked"]
+_CASES = ["init", "propagation", "refinement"]
 
 
 @pytest.mark.cuda
