@@ -49,8 +49,9 @@ with Cartesian position priors. Phases:
    bench_patch_match.plane_problem) in both passes, one launch of each
    kind the solver makes (`_selector`: the initial costs on both
    colours, a propagation half-iteration's 6 candidates on one colour, a
-   refinement half-iteration's 2 on both colours) against
-   `_keep_better_reference` on copies of the same inputs: costs 1e-4 on
+   refinement half-iteration's 2 on both colours, the last two built in
+   the launch) against `_keep_better_reference` on the torch-built
+   candidates and copies of the same inputs: costs 1e-4 on
    99.9% of the pixels, 1e-3 on all, the same NaN pixels, the held plane
    kept outside the launch and at NaN held costs, and the twin's kept
    candidate wherever its costs do not tie (2e-3);
@@ -414,23 +415,25 @@ def main():
 def patch_match_kernel() -> dict:
     """[pm-kernel]: build csrc/patch_match_cost.cu, then hold each kind of
     launch the solver makes (`pm._selector`: the initial planes on both
-    colours, a propagation half-iteration's 6 candidates on one colour, a
-    refinement half-iteration's 2 candidates on both colours) to its twin
-    `pm._keep_better_reference` on copies of the same inputs, on the dense
-    cell's shape (640x480, 8 sources, `bench_patch_match.plane_problem`:
-    texture in every window, the sources' true depth maps as the geometric
-    pass's input; planes near the truth, a third random; held costs the
-    held planes' own, every 97th NaN), in both passes; one launch a call.
-    Costs within 1e-4 on 99.9% of the launch's pixels, 1e-3 on all, NaN at
-    the same pixels; every pixel holds its held plane or a candidate, bit
-    for bit; pixels outside the launch or with a NaN held cost keep their
-    plane and cost; and the kept candidate is the twin's wherever the
-    twin's costs of the two choices lie more than 2e-3 apart (two costs
-    each within 1e-3 of the twin's can swap their order only closer than
-    that). Prints each check, the twin's time, the build
-    seconds and, from `bench_patch_match.launch_times`, each kind's time
-    and bound; the report's headline (ms, bound_ms, plain_ms) is the
-    photometric propagation launch's."""
+    colours; a propagation half-iteration's 6 candidates on one colour and
+    a refinement half-iteration's 2 candidates on both colours, built in
+    the launch from the held planes and two draws) to its twin
+    `pm._keep_better_reference` on the torch-built candidates
+    (`pm._candidates`) and copies of the same inputs, on the dense cell's
+    shape (640x480, 8 sources, `bench_patch_match.plane_problem`: texture
+    in every window, the sources' true depth maps as the geometric pass's
+    input; held planes near the truth, a third random; held costs the held
+    planes' own, every 97th NaN), in both passes; one launch a call, its
+    built planes counted. Costs within 1e-4 on 99.9% of the launch's
+    pixels, 1e-3 on all, NaN at the same pixels; every pixel holds its
+    held plane or a torch-built candidate, bit for bit; pixels outside the
+    launch or with a NaN held cost keep their plane and cost; and the kept
+    candidate is the twin's wherever the twin's costs of the two choices
+    lie more than 2e-3 apart (two costs each within 1e-3 of the twin's can
+    swap their order only closer than that). Prints each check, the twin's
+    time, the build seconds and, from `bench_patch_match.launch_times`,
+    each kind's time and bound; the report's headline (ms, bound_ms,
+    plain_ms) is the photometric propagation launch's."""
     t0 = time.perf_counter()
     hpm.build()
     build_s = cuda_build.build_seconds["patch_match_cost"]
@@ -439,16 +442,14 @@ def patch_match_kernel() -> dict:
     n_src, (w, h) = 8, (640, 480)
     problem, gt = bench_patch_match.plane_problem(h, w, n_src, seed=1,
                                                   geom=True)
-    planes = [bench_patch_match.plane_candidates(problem, gt, seed=2 + j)
-              for j in range(7)]
-    held_d, held_n = planes[0]
-    cand_d = torch.stack([p[0] for p in planes[1:]])
-    cand_n = torch.stack([p[1] for p in planes[1:]])
+    held_d, held_n = bench_patch_match.plane_candidates(problem, gt, seed=2)
+    gen = torch.Generator(device=gt.device).manual_seed(3)
+    draws = [pm.GeneratorDraws(gen, (h, w)).perturbation() for _ in range(2)]
     report = {"name": "patch_match_cost", "route": "cuda",
               "source": "colmap_tpu_torch/csrc/patch_match_cost.cu",
               "replaces": None, "library_ms": None, "build_s": build_s,
               "shapes": [], "launches_by_path": {},
-              "evaluations_by_path": {}}
+              "evaluations_by_path": {}, "built_by_path": {}}
     for geom in (False, True):
         opts = pm.PatchMatchOptions(geom_consistency=geom)
         pre = pm._precompute(problem, opts)
@@ -456,14 +457,14 @@ def patch_match_kernel() -> dict:
         tables = pm._twin_tables(problem, pre, opts,
                                  pm._colours(h, w, gt.device))
         held_c = torch.empty((h, w), device=gt.device)
-        select(None, held_d[None], held_n[None], held_c)
+        select.costs(None, held_d, held_n, held_c)
         held_c.view(-1)[::97] = float("nan")
-        for kind, colour, c in (("init", None, 1), ("propagation", 1, 6),
-                                ("refinement", None, 2)):
+        for kind, colour, scales in (("init", None, []),
+                                     ("propagation", 1, [0.5, 0.25]),
+                                     ("refinement", None, [0.02, 0.01])):
             report["shapes"].append(pm_launch_against_twin(
                 problem, pre, opts, kind, select, colour, tables,
-                cand_d[:c].contiguous(), cand_n[:c].contiguous(), held_d,
-                held_n, held_c))
+                draws[:len(scales)], scales, held_d, held_n, held_c))
     report["launch_kinds"] = bench_patch_match.launch_times()
     for k in report["launch_kinds"]:
         phase(f"[pm-kernel] {'geometric' if k['geometric'] else 'photometric'}"
@@ -481,19 +482,24 @@ def patch_match_kernel() -> dict:
 
 
 def pm_launch_against_twin(problem, pre, opts, kind, select, colour,
-                           tables, cand_d, cand_n, held_d, held_n, held_c):
+                           tables, draws, scales, held_d, held_n, held_c):
     """One launch of `kind` through the solver's `select` on checkerboard
     colour `colour` (None: both) against `pm._keep_better_reference` on
-    the twin's tables `tables` (both colours) and copies of the same
-    inputs (the initial planes: the held planes as the one candidate and
-    no held plane); fails on any check of `patch_match_kernel`, else
-    returns the readings."""
+    the twin's tables `tables` (both colours), the torch-built
+    candidates from the held planes and `draws` at `scales`, and copies of
+    the same inputs (the initial planes: the held planes as the one
+    candidate and no held plane); fails on any check of
+    `patch_match_kernel`, else returns the readings."""
     geom = opts.geom_consistency
     label = f"{'geometric' if geom else 'photometric'} {kind}"
     h, w = held_d.shape
     init = kind == "init"
+    propagate = kind == "propagation"
     if init:
         cand_d, cand_n = held_d[None], held_n[None]
+    else:
+        cand_d, cand_n = pm._candidates(problem, pre.rays, held_d, held_n,
+                                        draws, scales, propagate)
 
     def fresh():
         if init:
@@ -507,14 +513,18 @@ def pm_launch_against_twin(problem, pre, opts, kind, select, colour,
                                   *state)
 
     got, ref = fresh(), fresh()
-    before, evals = hpm.launches, hpm.evaluations
-    select(colour, cand_d, cand_n, *got)
+    before, evals, built = hpm.launches, hpm.evaluations, hpm.built
+    if init:
+        select.costs(colour, held_d, held_n, *got)
+    else:
+        select.keep_better(colour, propagate, draws, scales, *got)
     pixels = sum(int(S.idx.numel()) for S in sets)
-    if (hpm.launches - before, hpm.evaluations - evals) != (
-            1, pixels * cand_d.shape[0]):
-        fail(f"{label}: {hpm.launches - before} launches and "
-             f"{hpm.evaluations - evals} evaluations for one launch of "
-             f"{pixels * cand_d.shape[0]}")
+    want = pixels * cand_d.shape[0]
+    if (hpm.launches - before, hpm.evaluations - evals,
+            hpm.built - built) != (1, want, 0 if init else want):
+        fail(f"{label}: {hpm.launches - before} launches, "
+             f"{hpm.evaluations - evals} evaluations and "
+             f"{hpm.built - built} planes built for one launch of {want}")
     reference(ref)
     scratch = fresh()
     twin_ms = cuda_ms(lambda: reference(scratch), 3)
@@ -563,14 +573,15 @@ def pm_launch_against_twin(problem, pre, opts, kind, select, colour,
                  f"at {int(wrong.sum())} pixels whose costs do not tie")
         swaps = float((k_got != k_ref)[inside].float().mean())
         changed = float((k_got != -1)[inside].float().mean())
-    phase(f"[pm-kernel] {label} launch, {cand_d.shape[0]} candidates on "
+    phase(f"[pm-kernel] {label} launch, {cand_d.shape[0]} candidates "
+          f"({'given' if init else 'built in the launch'}) on "
           f"{pixels} pixels, {problem.src_images.shape[0]} sources: costs "
           f"{within:.6f} within 1e-4 of the twin, max {max_err:.3e}; plane "
           f"changed at {changed:.4f} of them, another candidate than the "
           f"twin's (a tie) at {swaps:.6f}; twin {twin_ms:.4f} ms")
     return {"pass": "geometric" if geom else "photometric", "kind": kind,
             "width": w, "height": h, "pixels": pixels,
-            "candidates": cand_d.shape[0],
+            "candidates": cand_d.shape[0], "built": 0 if init else want,
             "sources": problem.src_images.shape[0], "plain_ms": twin_ms,
             "within_1e4": within, "max_abs_err": max_err,
             "changed": changed, "tie_swaps": swaps}
@@ -985,14 +996,16 @@ def pm_calls_per_solve(opts: pm.PatchMatchOptions) -> int:
     return 1 + 2 * opts.num_iterations + 2 * opts.num_refinement_iterations
 
 
-def check_pm_launches(tag, launches, evaluations, maps, dense_dir,
+def check_pm_launches(tag, launches, evaluations, built, maps, dense_dir,
                       pm_report):
     """The cost kernel launched once at init and once per half-iteration
     of both passes' `maps` solves each (the stereo defaults' options), and
     evaluated `bench_patch_match.cost_evaluations` (43) x H x W planes a
-    solve, H x W read from the depth maps in `dense_dir` (the geometric
-    pass writes them at the size both passes solved);
-    recorded as the path's counts in the kernel's report."""
+    solve, all but the initial H x W built in the kernel (42 x H x W; a
+    job of 24 solves at 640x480: 309,657,600), H x W read from the depth
+    maps in `dense_dir` (the geometric pass writes them at the size both
+    passes solved); recorded as the path's counts in the kernel's
+    report."""
     opts = dense.PatchMatchStereoOptions().patch_match
     want = 2 * maps * pm_calls_per_solve(opts)
     pixels = [depth_map.DepthMap.read(os.path.join(
@@ -1003,17 +1016,23 @@ def check_pm_launches(tag, launches, evaluations, maps, dense_dir,
     if len(pixels) != maps:
         fail(f"{tag}: {len(pixels)} depth maps for {maps} maps")
     want_evals = 2 * bench_patch_match.cost_evaluations(opts) * sum(pixels)
+    want_built = want_evals - 2 * sum(pixels)
     pm_report["launches_by_path"][tag] = launches
     pm_report["evaluations_by_path"][tag] = evaluations
+    pm_report["built_by_path"][tag] = built
     phase(f"[{tag}] PatchMatch cost kernel launches {launches} for 2 x "
           f"{maps} solves ({want} wanted), plane evaluations {evaluations} "
-          f"({want_evals} wanted)")
+          f"({want_evals} wanted), planes built in the kernel {built} "
+          f"({want_built} wanted)")
     if launches != want:
         fail(f"{tag}: the cost kernel launched {launches} times for {want} "
              f"half-iterations and initial costs")
     if evaluations != want_evals:
         fail(f"{tag}: the cost kernel evaluated {evaluations} planes for "
              f"{want_evals}")
+    if built != want_built:
+        fail(f"{tag}: the cost kernel built {built} planes for "
+             f"{want_built}")
 
 
 def dense_path(work, report, pm_report):
@@ -1033,16 +1052,18 @@ def dense_path(work, report, pm_report):
         camera_model="SIMPLE_RADIAL", single_camera=True, sparse=True,
         dense=True,
         camera_params=",".join(map(str, [K[0, 0], K[0, 2], K[1, 2], 0.0])))
-    hpm.launches = hpm.evaluations = 0
+    hpm.launches = hpm.evaluations = hpm.built = 0
     rec, db, st, launches = drive("dense", opts)
     pm_launches, pm_evaluations = hpm.launches, hpm.evaluations
+    pm_built = hpm.built
     report["launches_by_path"]["dense"] = launches
     n_maps = st["patch_match_maps"]
     dense_dir = os.path.join(opts.workspace_path, "dense")
-    check_pm_launches("dense", pm_launches, pm_evaluations, n_maps,
-                      dense_dir, pm_report)
+    check_pm_launches("dense", pm_launches, pm_evaluations, pm_built,
+                      n_maps, dense_dir, pm_report)
     pm_report["launches"] = pm_launches
     pm_report["evaluations"] = pm_evaluations
+    pm_report["built"] = pm_built
     ids = {im["name"]: iid for iid, im in db.read_images().items()}
     ucam = next(iter(reconstruction_io.read_model(
         os.path.join(dense_dir, "sparse")).cameras.values()))
@@ -1289,19 +1310,20 @@ def multi_path(dslr, dense_cell, report, pm_report):
             os.remove(os.path.join(ws, "stereo", sub, f))
     timings = {}
     _zero_counts()
-    hpm.launches = hpm.evaluations = 0
+    hpm.launches = hpm.evaluations = hpm.built = 0
     t0 = time.perf_counter()
     dense.run_patch_match_stereo(ws, dense.PatchMatchStereoOptions(
         num_devices=2, max_image_size=MULTI_PATCH_MATCH_SIZE),
         device="cuda", timings=timings)
     pm_launches, pm_evaluations = hpm.launches, hpm.evaluations
+    pm_built = hpm.built
     _step(f"run_patch_match_stereo(num_devices=2) at "
           f"{MULTI_PATCH_MATCH_SIZE} px, "
           f"{_mesh_line(pmesh.make_mesh(2, 'cuda'))}: {timings['maps']} maps, "
           f"photometric {timings['photometric']:.3f} s, geometric "
           f"{timings['geometric']:.3f} s", t0)
-    check_pm_launches("multi", pm_launches, pm_evaluations, timings["maps"],
-                      ws, pm_report)
+    check_pm_launches("multi", pm_launches, pm_evaluations, pm_built,
+                      timings["maps"], ws, pm_report)
     check_depth_maps(dense_cell["rec"], dense_cell["gt"], ws,
                      dense_cell["room_size"], "multi")
     phase(f"[multi] phase {time.perf_counter() - t_phase:.3f} s")

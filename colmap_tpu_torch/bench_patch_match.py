@@ -228,7 +228,8 @@ def launch_times(device="cuda", reps: int = 20) -> list:
     """One launch of each kind the solver makes (`patch_match._selector`:
     the initial planes on every pixel, a propagation half-iteration's 4 +
     num_perturbations candidates on one colour, a refinement
-    half-iteration's 2 candidates on both colours) at the cell's shape, on
+    half-iteration's 2 candidates on both colours, the last two built in
+    the launch from the held planes and the draws) at the cell's shape, on
     `plane_problem` (texture in every window), photometric and geometric:
     ms a launch (CUDA events over `reps` launches), ns a plane evaluation,
     and the bound: `cost_call_bound_ms` of the launch's pixels times its
@@ -244,25 +245,30 @@ def launch_times(device="cuda", reps: int = 20) -> list:
                                     geom=geom)
         opts = pm.PatchMatchOptions(geom_consistency=geom)
         select = pm._selector(problem, pm._precompute(problem, opts), opts)
-        c_prop = 4 + opts.num_perturbations
-        planes = [plane_candidates(problem, gt, seed=2 + j)
-                  for j in range(c_prop + 1)]
-        cand_d = torch.stack([p[0] for p in planes[1:]])
-        cand_n = torch.stack([p[1] for p in planes[1:]])
-        depth, normal = planes[0]
+        n_pert = opts.num_perturbations
+        depth, normal = plane_candidates(problem, gt, seed=2)
+        gen = torch.Generator(device=device).manual_seed(3)
+        draws = [pm.GeneratorDraws(gen, (height, width)).perturbation()
+                 for _ in range(n_pert)]
         cost = torch.empty_like(depth)
+        select.costs(None, depth, normal, cost)
         for kind, colour, pixels, c in (
                 ("init", None, width * height, 1),
-                ("propagation", 1, colour1, c_prop),
+                ("propagation", 1, colour1, 4 + n_pert),
                 ("refinement", None, width * height, 2)):
             if kind == "init":
-                args = (depth[None], normal[None], cost)
+                def launch(out=torch.empty_like(cost)):
+                    select.costs(None, depth, normal, out)
             else:
-                args = (cand_d[:c], cand_n[:c], cost, depth.clone(),
-                        normal.clone())
+                propagate = kind == "propagation"
+                scales = [(0.5 if propagate else 0.02) / (j + 1)
+                          for j in range(c - 4 * propagate)]
+                state = (cost.clone(), depth.clone(), normal.clone())
 
-            def launch(colour=colour, args=args):
-                select(colour, *args)
+                def launch(colour=colour, propagate=propagate,
+                           scales=scales, state=state):
+                    select.keep_better(colour, propagate,
+                                       draws[:len(scales)], scales, *state)
 
             before = hpm.launches
             launch()

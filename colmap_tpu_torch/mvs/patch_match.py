@@ -24,17 +24,20 @@ is the JAX module's, not the reference's sequential sweep:
 
 A solve picks its implementation once (`_selector`): on CUDA tensors a
 whole half-iteration is one launch of the hand-written kernel
-csrc/patch_match_cost.cu (`hopper_patch_match`): it evaluates every
-candidate plane at every pixel it updates (the warp, the samples, the NCC
-over all sources, the geometric term and the top-k, without any [sources,
-pixels, taps] temporary) and keeps the better in candidate order. A solve
-makes 1 + 2 num_iterations + 2 num_refinement_iterations launches (17 at
-the defaults): the initial costs, each propagation half-iteration (its 4 +
-num_perturbations candidates on one colour) and each refinement
-half-iteration (2 candidates on both colours, which read only candidates
-built before either colour changes). On CPU tensors the selector builds
-the plain twin's tables once (`_twin_tables`: the reference patches and
-their bilateral weights per colour) and runs the twin,
+csrc/patch_match_cost.cu (`hopper_patch_match`): it builds every
+candidate plane of every pixel it updates from the held planes, the
+draws and their scales (the bits of `_candidates`), evaluates them (the
+warp, the samples, the NCC over all sources, the geometric term and the
+top-k, without any [sources, pixels, taps] temporary) and keeps the
+better in candidate order. A solve makes 1 + 2 num_iterations + 2
+num_refinement_iterations launches (17 at the defaults): the initial
+costs, each propagation half-iteration (its 4 + num_perturbations
+candidates on one colour) and each refinement half-iteration (2
+candidates on both colours, built before either colour changes). On CPU
+tensors the selector builds the candidates with torch (`_candidates`:
+`_propagate`, `_perturb`, the clamp to the depth range) and the plain
+twin's tables once (`_twin_tables`: the reference patches and their
+bilateral weights per colour), and runs the twin,
 `_keep_better_reference` (one `_set_cost_reference` per colour and
 candidate, then torch's select). Keep-if-better is strict and in
 candidate order: candidate j replaces the held plane where its cost is
@@ -57,7 +60,7 @@ from JAX's key chain).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -459,40 +462,75 @@ def _set_cost_reference(problem: PatchMatchProblem, pre: _Precomp,
     return torch.topk(costs, k, dim=0, largest=False).values.mean(0)
 
 
+class _Select(NamedTuple):
+    """A solve's plane selection (`_selector`); each call is one
+    `patch_match.cost` span, on CUDA one kernel launch.
+
+    - costs(colour, depth, normal, cost): the initial planes: the cost of
+      the plane depth [H, W], normal [H, W, 3] at the pixels of
+      checkerboard colour `colour` (0, 1, or None: every pixel) is written
+      into cost [H, W].
+    - keep_better(colour, propagate, draws, scales, cost, depth, normal): a
+      half-iteration at the pixels of `colour`: the candidates of
+      `_candidates` (with `propagate` the four neighbours' planes, then one
+      perturbation of the held plane per draw (u, g) at its scale, the
+      depths clamped to the problem's range), each kept, in order, where
+      its cost is strictly below the held cost: depth [H, W], normal
+      [H, W, 3] and cost [H, W] are updated in place.
+    """
+
+    costs: Callable
+    keep_better: Callable
+
+
 def _selector(problem: PatchMatchProblem, pre: _Precomp,
-              opts: PatchMatchOptions):
+              opts: PatchMatchOptions) -> _Select:
     """The solve's plane selection, its implementation picked once by the
-    problem's device. Returns select(colour, cand_d, cand_n, cost,
-    depth=None, normal=None): evaluate the C candidate planes (cand_d
-    [C, H, W], cand_n [C, H, W, 3]) at the pixels of checkerboard colour
-    `colour` (0, 1, or None: every pixel) and keep each, in order, where
-    its cost is strictly below the held cost: depth [H, W], normal
-    [H, W, 3] and cost [H, W] are updated in place. Without depth and
-    normal (the initial planes) C is 1 and its cost is written. One span,
-    `patch_match.cost`, per call. CUDA tensors: one launch of the kernel;
-    CPU tensors: the twin `_keep_better_reference` on tables built here,
-    once, colour by colour."""
+    problem's device. CUDA tensors: each call one launch of the kernel,
+    which builds a half-iteration's candidates itself; CPU tensors: the
+    torch candidates (`_candidates`) and the twin `_keep_better_reference`
+    on tables built here, once, colour by colour."""
     dev = problem.ref_image.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no PatchMatch cost for device {dev}")
     colours = _colours(*problem.ref_image.shape, dev)
     if dev.type == "cuda":
-        def keep_better(colour, *planes):
-            idx = None if colour is None else colours[colour]
-            hopper_patch_match.select_planes(problem, pre, opts, idx, *planes)
+        def pixels(colour):
+            return None if colour is None else colours[colour]
+
+        def costs(colour, depth, normal, cost):
+            hopper_patch_match.plane_costs(problem, pre, opts, pixels(colour),
+                                           depth, normal, cost)
+
+        def keep_better(colour, propagate, draws, scales, cost, depth,
+                        normal):
+            hopper_patch_match.select_planes(
+                problem, pre, opts, pixels(colour), cost, depth, normal,
+                draws, scales, propagate)
     else:
         twin = _twin_tables(problem, pre, opts, colours)
 
-        def keep_better(colour, *planes):
-            _keep_better_reference(
-                problem, pre, opts,
-                twin if colour is None else twin[colour:colour + 1], *planes)
+        def sets(colour):
+            return twin if colour is None else twin[colour:colour + 1]
 
-    def select(colour, cand_d, cand_n, cost, depth=None, normal=None):
-        with span("patch_match.cost"):
-            keep_better(colour, cand_d, cand_n, cost, depth, normal)
+        def costs(colour, depth, normal, cost):
+            _keep_better_reference(problem, pre, opts, sets(colour),
+                                   depth[None], normal[None], cost)
 
-    return select
+        def keep_better(colour, propagate, draws, scales, cost, depth,
+                        normal):
+            cand_d, cand_n = _candidates(problem, pre.rays, depth, normal,
+                                         draws, scales, propagate)
+            _keep_better_reference(problem, pre, opts, sets(colour), cand_d,
+                                   cand_n, cost, depth, normal)
+
+    def spanned(fn):
+        def call(*args):
+            with span("patch_match.cost"):
+                fn(*args)
+        return call
+
+    return _Select(spanned(costs), spanned(keep_better))
 
 
 def _keep_better_reference(problem: PatchMatchProblem, pre: _Precomp,
@@ -556,6 +594,28 @@ def _perturb(draw, depth, normal, rays, scale: float):
     return d, _unit(torch.where(nd > 0, -n, n))
 
 
+# the neighbours' torch.roll shifts, in the candidates' order: the pixel
+# above, below, left and right
+_SHIFTS = ((1, 0), (-1, 0), (0, 1), (0, -1))
+
+
+def _candidates(problem: PatchMatchProblem, rays, depth, normal, draws,
+                scales: Sequence[float], propagate: bool):
+    """A half-iteration's candidate planes, built with torch over the whole
+    image from the held planes: with `propagate` the four neighbours'
+    (`_propagate`, in `_SHIFTS` order), then one `_perturb` per draw at its
+    scale; the depths clamped to the problem's range. Returns (depths
+    [C, H, W], normals [C, H, W, 3]). The CPU solve's candidates; the kernel
+    builds the same bits on the card."""
+    cand = ([_propagate(depth, normal, rays, shift) for shift in _SHIFTS]
+            if propagate else [])
+    cand += [_perturb(draw, depth, normal, rays, scale)
+             for draw, scale in zip(draws, scales)]
+    cand_d = torch.clamp(torch.stack([c[0] for c in cand]),
+                         problem.depth_min, problem.depth_max)
+    return cand_d, torch.stack([c[1] for c in cand])
+
+
 @torch.no_grad()
 def patch_match(draws, problem: PatchMatchProblem,
                 options: PatchMatchOptions = PatchMatchOptions()):
@@ -568,7 +628,9 @@ def patch_match(draws, problem: PatchMatchProblem,
     `patch_match.propagation` and one `patch_match.refinement` per
     half-iteration, `patch_match.filter`, and inside init and each
     half-iteration one `patch_match.cost` (`_selector`: on CUDA one
-    kernel launch), 37 spans a solve at the defaults.
+    kernel launch, which builds the half-iteration's candidates), 37
+    spans a solve at the defaults. The draws are taken in the same number,
+    order and shapes on every device.
     """
     with span("patch_match"):
         return _patch_match(draws, problem, options)
@@ -593,7 +655,7 @@ def _patch_match(draws, problem: PatchMatchProblem,
         depth = torch.exp(u0 * (log_hi - log_lo) + log_lo)
         normal = _random_normals(g0, rays)
         cost = torch.empty((h, w), dtype=_F32, device=dev)
-        select(None, depth[None], normal[None], cost)
+        select.costs(None, depth, normal, cost)
 
     def draw():
         return tuple(t.to(dev) for t in draws.perturbation())
@@ -601,28 +663,20 @@ def _patch_match(draws, problem: PatchMatchProblem,
     for i in range(2 * opts.num_iterations):
         with span("patch_match.propagation", iteration=i):
             it = float(i // 2)
-            cand = [_propagate(depth, normal, rays, shift)
-                    for shift in ((1, 0), (-1, 0), (0, 1), (0, -1))]
-            cand += [_perturb(draw(), depth, normal, rays,
-                              0.5 * 2.0 ** -it / (j + 1))
-                     for j in range(opts.num_perturbations)]
-            cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin,
-                                 dmax)
-            cand_n = torch.stack([c[1] for c in cand])
+            n = opts.num_perturbations
             # colour (y + x) % 2 == 1 is active on even half-iterations
-            select((i + 1) % 2, cand_d, cand_n, cost, depth, normal)
+            select.keep_better((i + 1) % 2, True, [draw() for _ in range(n)],
+                               [0.5 * 2.0 ** -it / (j + 1) for j in range(n)],
+                               cost, depth, normal)
 
     for i in range(2 * opts.num_refinement_iterations):
         with span("patch_match.refinement", iteration=i):
             scale = 0.02 * 2.0 ** -float(i // 2)
-            cand = [_perturb(draw(), depth, normal, rays, scale / (j + 1))
-                    for j in range(2)]
-            cand_d = torch.clamp(torch.stack([c[0] for c in cand]), dmin,
-                                 dmax)
-            cand_n = torch.stack([c[1] for c in cand])
             # both colours at once: the candidates are built before either
             # colour changes, as when the colours ran one after the other
-            select(None, cand_d, cand_n, cost, depth, normal)
+            select.keep_better(None, False, [draw() for _ in range(2)],
+                               [scale / (j + 1) for j in range(2)], cost,
+                               depth, normal)
 
     with span("patch_match.filter"):
         if opts.filter:

@@ -34,13 +34,18 @@ path (grid_sample's [-1, 1] round trip in the twin) differ. On the cell's
 own rendered scene both are held against the twin's float64 evaluation
 of the same inputs (on the CPU too, at 96x72), and the kernel launches
 once per call and refuses sizes beyond its limits. One launch of a
-half-iteration's C candidates (`hopper_patch_match.select_planes`: the
-initial planes, a propagation half-iteration on one colour, a refinement
-half-iteration on both colours) gives the
-depths, normals and costs of C one-candidate launches and torch's select,
-bit for bit, on the cell's own scene in both passes and at a size that is
-no multiple of the kernel's block; a solve makes 17 launches and
-43 x H x W plane evaluations. The machine with the card has no JAX; there
+half-iteration (`hopper_patch_match.select_planes`: a propagation
+half-iteration on one colour, a refinement half-iteration on both
+colours), which builds its C candidates itself from the held planes and
+the draws, gives the depths, normals and costs of the torch-built
+candidates (`_candidates`, the CPU solve's) evaluated by C one-candidate
+launches and selected by torch, bit for bit, on the cell's own scene in
+both passes, on each colour, at 640x480 and at odd sizes (where a wrapped
+neighbour shares the launch's colour) and no multiple of the kernel's
+block, with NaN held costs and NaN candidate depths; the initial planes'
+launch on both colours gives the costs of one launch a colour; a solve
+makes 17 launches and 43 x H x W plane evaluations, 42 x H x W of them of
+planes built in the kernel. The machine with the card has no JAX; there
 the JAX tests skip:
 
     python -m pytest tests/test_torch_patch_match.py -m cuda -q --noconftest -o addopts=""
@@ -302,7 +307,7 @@ def _costs_at(select, colour, idx, depth, normal):
     with them as its one candidate and no held plane (on CUDA one launch
     of the kernel, on the CPU the twin)."""
     cost = torch.empty(depth.shape, dtype=torch.float32, device=depth.device)
-    select(colour, depth.contiguous()[None], normal.contiguous()[None], cost)
+    select.costs(colour, depth.contiguous(), normal.contiguous(), cost)
     return cost.view(-1)[idx]
 
 
@@ -315,7 +320,7 @@ def _cost_fn(problem, pre, opts):
     def cost(depth, normal):
         out = torch.empty(depth.shape, dtype=torch.float32,
                           device=depth.device)
-        select(None, depth.contiguous()[None], normal.contiguous()[None], out)
+        select.costs(None, depth.contiguous(), normal.contiguous(), out)
         return out
 
     return cost
@@ -556,12 +561,14 @@ def test_kernel_wrapper_refuses_what_it_cannot_launch(small_room):
     depth, normal = (torch.as_tensor(x) for x in _planes(arrs, gt, seed=6))
     cost = torch.zeros(depth.shape)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        hpm.select_planes(tp, pre, opts, idx, depth[None], normal[None],
-                          cost, depth, normal)
+        hpm.select_planes(tp, pre, opts, idx, cost, depth, normal, [], [],
+                          True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hpm.plane_costs(tp, pre, opts, idx, depth, normal, cost)
     with pytest.raises(ValueError, match="no PatchMatch cost"):
         tpm._selector(tp._replace(ref_image=tp.ref_image.to("meta")), pre,
                       opts)
-    assert hpm.launches == hpm.evaluations == 0
+    assert hpm.launches == hpm.evaluations == hpm.built == 0
 
 
 # -- on the card --------------------------------------------------------------
@@ -824,7 +831,7 @@ def test_kernel_refuses_sizes_beyond_its_limits(cuda):
     depth, normal = bpm.plane_candidates(problem, gt, seed=2)
     before = hpm.launches
     with pytest.raises(ValueError, match="refused top_k 33, 33 sources"):
-        select(0, depth[None], normal[None], torch.empty_like(depth))
+        select.costs(0, depth, normal, torch.empty_like(depth))
     assert hpm.launches == before
 
 
@@ -834,10 +841,11 @@ def test_solver_launches_once_per_cost_call(cuda):
     launch of the kernel (17 at the defaults: the initial costs and each of
     the 10 propagation and 6 refinement half-iterations), which evaluate
     43 x H x W planes (1 + 5 x 6 / 2 x 2 + 3 x 2 x 2 whole-image
-    equivalents), and the maps are sound."""
+    equivalents), all but the initial H x W built in the kernel, and the
+    maps are sound."""
     problem, gt = bpm.plane_problem(120, 160, 4, cuda, seed=9, geom=False)
     opts = tpm.PatchMatchOptions()
-    before, evals = hpm.launches, hpm.evaluations
+    before, evals, built = hpm.launches, hpm.evaluations, hpm.built
     g = torch.Generator(device=cuda).manual_seed(0)
     with timer.span("test.solve") as job:
         depth, normal, _ = tpm.patch_match(tpm.GeneratorDraws(g, gt.shape),
@@ -848,6 +856,8 @@ def test_solver_launches_once_per_cost_call(cuda):
     assert hpm.launches - before == len(costs) == 17
     assert hpm.evaluations - evals == 43 * 120 * 160 == (
         bpm.cost_evaluations(opts) * 120 * 160)
+    # every plane but the initial ones is built in the kernel
+    assert hpm.built - built == 42 * 120 * 160
     ok = depth > 0
     assert float(ok.float().mean()) > 0.5
     rel = ((depth - gt).abs() / gt)[ok]
@@ -865,72 +875,91 @@ def test_solver_equals_the_per_candidate_loop_on_the_card(cuda, geom):
     assert float((depth > 0).float().mean()) > 0.5
 
 
-def _launch_cases(problem, gt, seed):
-    """The solver's three kinds of launch on `problem`, each as (name,
-    colour or None for both, candidate depths [C, H, W], normals
-    [C, H, W, 3], held planes or None): the initial planes on both
-    colours, a propagation half-iteration (C = 6) on colour 1 and a
-    refinement half-iteration (C = 2) on both colours."""
-    planes = [bpm.plane_candidates(problem, gt, seed=seed + j)
-              for j in range(7)]
-    cand_d = torch.stack([p[0] for p in planes[:6]])
-    cand_n = torch.stack([p[1] for p in planes[:6]])
-    held = planes[6]
-    return [
-        ("init", None, held[0][None], held[1][None], None),
-        ("propagation", 1, cand_d, cand_n, held),
-        ("refinement", None, cand_d[:2].contiguous(),
-         cand_n[:2].contiguous(), held),
-    ]
+def _draws(shape, device, n, seed):
+    """n perturbation draws as `GeneratorDraws` makes them: (uniform [H, W]
+    in [-1, 1), standard normal [H, W, 3])."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [tpm.GeneratorDraws(g, shape).perturbation() for _ in range(n)]
 
 
-def _launch_against_calls(problem, gt, opts, case, seed=3):
-    """One selector launch against one one-candidate launch a colour and
-    candidate (`_costs_at`) and torch's select, on the same planes: depth,
-    normal and cost bit for bit (the held costs are the held planes' own,
-    with some NaN). Returns the share of the launch's pixels whose plane
-    changed."""
+# the solver's three kinds of launch, as (name, colour or None for both,
+# propagate, draws): the initial planes on both colours, a propagation
+# half-iteration (4 + 2 candidates) on one colour, a refinement
+# half-iteration (2 candidates) on both colours
+_LAUNCHES = {"init": (None, False, 0), "propagation0": (0, True, 2),
+             "propagation": (1, True, 2), "refinement": (None, False, 2)}
+
+
+def _launch_against_calls(problem, gt, opts, case, seed=3, nan_depth=False):
+    """One selector launch against the same half-iteration built by the
+    torch code (`tpm._candidates`) and selected by one one-candidate
+    launch a colour and candidate (`_costs_at`) and torch's select:
+    depth, normal and cost bit for bit (NaN at the same places). The held
+    planes are `bpm.plane_candidates`', their costs their own with every
+    97th NaN; with `nan_depth` one held depth of the other colour (a
+    propagation's neighbour) and the first draw's u at a pixel of the
+    launch are NaN, so that candidates' depths are NaN before the clamp.
+    Returns the share of the launch's pixels whose plane changed."""
     pre = tpm._precompute(problem, opts)
     select = tpm._selector(problem, pre, opts)
-    name, colour, cand_d, cand_n, held = next(
-        c for c in _launch_cases(problem, gt, seed) if c[0] == case)
+    colour, propagate, n_draws = _LAUNCHES[case]
     h, w = gt.shape
+    held = bpm.plane_candidates(problem, gt, seed=seed)
+    draws = _draws((h, w), gt.device, n_draws, seed + 1)
+    scales = ([0.5 / (j + 1) for j in range(n_draws)] if propagate
+              else [0.02 / (j + 1) for j in range(n_draws)])
     colours = tpm._colours(h, w, gt.device)
     launched = (0, 1) if colour is None else (colour,)
+    if nan_depth:
+        c = launched[0]
+        other = colours[1 - c] if colour is not None else colours[c]
+        held[0].view(-1)[other[len(other) // 2]] = float("nan")
+        draws[0][0].view(-1)[colours[c][len(colours[c]) // 3]] = float("nan")
     states = []
     for batched in (True, False):
         cost = torch.empty((h, w), device=gt.device)
         depth = normal = None
-        if held is not None:
+        if case != "init":
             depth, normal = held[0].clone(), held[1].clone()
             for c, idx in enumerate(colours):
                 cost.view(-1)[idx] = _costs_at(select, c, idx, depth, normal)
             cost.view(-1)[::97] = float("nan")
-        before, evals = hpm.launches, hpm.evaluations
-        if batched:
-            select(colour, cand_d, cand_n, cost, depth, normal)
-            n = sum(int(colours[c].numel()) for c in launched)
-            assert hpm.launches - before == 1
-            assert hpm.evaluations - evals == n * cand_d.shape[0]
-        elif held is None:
+        before, evals, built = hpm.launches, hpm.evaluations, hpm.built
+        n = sum(int(colours[c].numel()) for c in launched)
+        if batched and case == "init":
+            select.costs(colour, *held, cost)
+        elif batched:
+            select.keep_better(colour, propagate, draws, scales, cost, depth,
+                               normal)
+            assert hpm.built - built == n * (4 * propagate + n_draws)
+        elif case == "init":
             for c in launched:
                 cost.view(-1)[colours[c]] = _costs_at(
-                    select, c, colours[c], cand_d[0], cand_n[0])
+                    select, c, colours[c], *held)
         else:
+            cand_d, cand_n = tpm._candidates(problem, pre.rays, depth,
+                                             normal, draws, scales, propagate)
+            if nan_depth:
+                assert bool(cand_d.isnan().any())
             for c in launched:
                 _select_by_calls(select, c, colours[c], cand_d, cand_n,
                                  depth, normal, cost)
+        if batched:
+            assert hpm.launches - before == 1
+            assert hpm.evaluations - evals == n * max(
+                1, 4 * propagate + n_draws)
         torch.cuda.synchronize()
         states.append((cost, depth, normal))
-    (c1, d1, n1), (c2, d2, n2) = states
-    assert torch.equal(c1.isnan(), c2.isnan())
-    assert torch.equal(c1.nan_to_num(), c2.nan_to_num()), \
-        int((c1.nan_to_num() != c2.nan_to_num()).sum())
-    if held is None:
+    for got, ref, name in zip(*states, ("cost", "depth", "normal")):
+        if got is None:
+            continue
+        assert torch.equal(got.isnan(), ref.isnan()), name
+        assert torch.equal(got.nan_to_num(), ref.nan_to_num()), \
+            (name, int((got.nan_to_num() != ref.nan_to_num()).sum()))
+    if case == "init":
         return None
-    assert torch.equal(d1, d2) and torch.equal(n1, n2)
-    assert bool(c1.view(-1)[::97].isnan().all())
-    return float((d1 != held[0]).float().mean())
+    assert bool(states[0][0].view(-1)[::97].isnan().all())
+    return float((states[0][1] != held[0]).float().mean())
 
 
 _CASES = ["init", "propagation", "refinement"]
@@ -942,7 +971,8 @@ _CASES = ["init", "propagation", "refinement"]
 def test_launch_equals_per_candidate_calls_on_the_cells_scene(cuda, geom,
                                                               case):
     """The benchmark's renderer at 640x480 with 8 sources, both passes:
-    each kind of launch against the per-candidate calls, bit for bit."""
+    each kind of launch against the per-candidate calls on the torch-built
+    candidates, bit for bit."""
     problem, gt, _ = _cell_scene(cuda, seed=1)
     if not geom:
         problem = problem._replace(src_depths=None)
@@ -957,7 +987,8 @@ def test_launch_equals_per_candidate_calls_on_the_cells_scene(cuda, geom,
 @pytest.mark.parametrize("case", _CASES)
 def test_launch_equals_per_candidate_calls_off_the_block(cuda, case):
     """37x53 pixels (colours of 981 and 980, no multiple of the kernel's
-    32-pixel block), 3 sources, both terms."""
+    32-pixel block; odd sizes, so a wrapped neighbour shares the
+    propagation's colour), 3 sources, both terms."""
     problem, gt = bpm.plane_problem(37, 53, 3, cuda, seed=5, geom=True)
     opts = tpm.PatchMatchOptions(geom_consistency=True, top_k=2)
     changed = _launch_against_calls(problem, gt, opts, case)
@@ -966,18 +997,42 @@ def test_launch_equals_per_candidate_calls_off_the_block(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", [(480, 640), (121, 161)],
+                         ids=["640x480", "161x121"])
+@pytest.mark.parametrize("geom", [False, True])
+@pytest.mark.parametrize("case", ["propagation0", "propagation",
+                                  "refinement"])
+def test_kernel_builds_the_torch_candidates(cuda, case, geom, size):
+    """A half-iteration's launch builds the candidates of the torch
+    code (`_propagate`, `_perturb`, stack and clamp: the CPU solve's)
+    bit for bit: against them evaluated by one-candidate launches and
+    selected by torch, depth, normal and cost are equal, on each colour of
+    a propagation and on both of a refinement, in both passes, at the
+    cell's 640x480 (every neighbour of the other colour) and at 161x121
+    (a wrapped neighbour of the same colour), with NaN held costs and a
+    NaN candidate depth before the clamp."""
+    h, w = size
+    problem, gt = bpm.plane_problem(h, w, 8, cuda, seed=h, geom=geom)
+    opts = tpm.PatchMatchOptions(geom_consistency=geom)
+    changed = _launch_against_calls(problem, gt, opts, case, seed=w,
+                                    nan_depth=True)
+    assert changed > 0.05, changed
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_more_candidates_than_its_limit(cuda):
-    """The C entry holds the candidates' limit (256, its shared memory):
-    257 come back as a ValueError and nothing is counted."""
+    """The C entry holds the candidates' limit (256, its shared memory)
+    and the draws' (16, its constants): 4 + 253 candidates, or 4 + 17,
+    come back as a ValueError and nothing is counted."""
     problem, gt = bpm.plane_problem(16, 16, 2, cuda, seed=1)
     opts = tpm.PatchMatchOptions()
     pre = tpm._precompute(problem, opts)
     depth, normal = bpm.plane_candidates(problem, gt, seed=2)
     cost = torch.zeros_like(depth)
-    before = hpm.launches
-    with pytest.raises(ValueError, match="257 candidates"):
-        hpm.select_planes(problem, pre, opts, None,
-                          depth.expand(257, -1, -1).contiguous(),
-                          normal.expand(257, -1, -1, -1).contiguous(), cost,
-                          depth, normal)
-    assert hpm.launches == before
+    before = hpm.launches, hpm.evaluations, hpm.built
+    for n, c in ((253, 257), (hpm.MAX_DRAWS + 1, hpm.MAX_DRAWS + 5)):
+        draws = _draws(gt.shape, cuda, n, seed=3)
+        with pytest.raises(ValueError, match=f"{c} candidates, {n} draws"):
+            hpm.select_planes(problem, pre, opts, None, cost, depth, normal,
+                              draws, [0.5] * n, True)
+    assert (hpm.launches, hpm.evaluations, hpm.built) == before
