@@ -22,9 +22,10 @@ What an operator reads: the seconds `run_patch_match_stereo` puts in its
 writes around a call, where the job's spans show as ranges:
 `dense.patch_match_stereo` (the job), `dense.load_workspace` (inside:
 `dense.read_model`, `dense.build_model`, `dense.read_images`), one
-`dense.pass` per pass, per problem `dense.upload`, `dense.solve` and
-`dense.fetch`, then `dense.write_maps`; inside each solve the solver's
-own (`mvs/patch_match.py`).
+`dense.pass` per pass (attrs `pass` and `cards`, the shards it runs on),
+per problem `dense.upload`, `dense.solve` and `dense.fetch` (each with
+`card`, the rank of the shard that ran it), then `dense.write_maps`;
+inside each solve the solver's own (`mvs/patch_match.py`).
 """
 
 from __future__ import annotations
@@ -146,7 +147,7 @@ def _patch_match_stereo(workspace_path: str, options: PatchMatchStereoOptions,
                                    device=dev)
 
         for ref_id, im in order[rank::len(devices)]:
-            with timer.span("dense.upload", image_id=ref_id):
+            with timer.span("dense.upload", image_id=ref_id, card=rank):
                 srcs = model.src_images(ref_id, options.max_num_src_images)
                 if not srcs:
                     logger.warning("image %d has no source images", ref_id)
@@ -173,12 +174,12 @@ def _patch_match_stereo(workspace_path: str, options: PatchMatchStereoOptions,
                     src_depths=src_depths,
                 )
                 draws = pm.GeneratorDraws(generator, images[ref_id].shape)
-            with timer.span("dense.solve", image_id=ref_id,
+            with timer.span("dense.solve", image_id=ref_id, card=rank,
                             sources=len(srcs), **{"pass": kind}):
                 depth, normal, _ = pm.patch_match(draws, problem, po)
                 if on_card:
                     torch.cuda.synchronize(dev)
-            with timer.span("dense.fetch", image_id=ref_id):
+            with timer.span("dense.fetch", image_id=ref_id, card=rank):
                 depths[ref_id] = depth.cpu().numpy()
                 normals[ref_id] = normal.cpu().numpy()
                 logger.info("patch-match %s (%s): %.0f%% estimated",
@@ -188,7 +189,8 @@ def _patch_match_stereo(workspace_path: str, options: PatchMatchStereoOptions,
 
     def solve_all(geom: bool, prior: Dict[int, np.ndarray]):
         kind = "geometric" if geom else "photometric"
-        with timer.span("dense.pass", **{"pass": kind}) as p:
+        with timer.span("dense.pass", cards=len(devices),
+                        **{"pass": kind}) as p:
             if mesh is None:
                 depths, normals = solve_part(geom, prior, 0)
             else:

@@ -155,3 +155,43 @@ def test_delaunay_mesher_on_the_fused_cloud(workspace):
         ws, os.path.join(ws, "meshed-delaunay.ply"))
     assert len(verts) > 0 and len(faces) > 0
     assert faces.max() < len(verts)
+
+
+def test_patch_match_spans_name_each_problems_card(workspace):
+    """Round robin over 4 CPU shards: each card's upload, solve and fetch
+    spans carry its rank and hold the frames `order[rank::4]` in both
+    passes, each pass its count of cards. One card's first map is the
+    same bits as card 0's on 4 shards: both draw from seed + 0 first."""
+    from colmap_tpu_torch.util import timer
+
+    ws, _ = workspace
+
+    def run(num_devices, geom):
+        return dense.run_patch_match_stereo(ws, dense.PatchMatchStereoOptions(
+            patch_match=pm.PatchMatchOptions(num_iterations=1,
+                                             num_refinement_iterations=0),
+            max_num_src_images=3, geom_consistency=geom,
+            num_devices=num_devices), device="cpu")
+
+    order = sorted(run(4, True))
+    spans = timer.last_job("dense.patch_match_stereo")
+    passes = [s for s in spans if s.name == "dense.pass"]
+    assert [(p.attrs["pass"], p.attrs["cards"]) for p in passes] == [
+        ("photometric", 4), ("geometric", 4)]
+    for p in passes:
+        solves = [s for s in spans if s.name == "dense.solve"
+                  and s.parent == p.id]
+        for rank in range(4):
+            got = [s.attrs["image_id"] for s in solves
+                   if s.attrs["card"] == rank]
+            assert got == order[rank::4], (p.attrs["pass"], rank, got)
+    for name in ("dense.upload", "dense.fetch"):
+        assert {s.attrs["card"] for s in spans if s.name == name} == {
+            0, 1, 2, 3}
+
+    one = run(1, False)
+    spans = timer.last_job("dense.patch_match_stereo")
+    assert {s.attrs["card"] for s in spans if s.name in (
+        "dense.upload", "dense.solve", "dense.fetch")} == {0}
+    assert [s.attrs["cards"] for s in spans if s.name == "dense.pass"] == [1]
+    np.testing.assert_array_equal(one[order[0]], run(4, False)[order[0]])
